@@ -1,0 +1,1 @@
+"""Image ops and the hand-written kernels with their plain versions."""

@@ -1,0 +1,53 @@
+"""Shared helpers of the ``test_torch_port_*`` files: seeded weights made with
+numpy for the port's DeepLab, and their flax counterparts through the JAX
+package's own importer."""
+
+import numpy as np
+import torch
+
+
+def random_state(model, seed):
+    """A ``state_dict`` for ``model`` with every float tensor drawn from
+    ``np.random.default_rng(seed)``: kaiming-scaled kernels, BN scale ~1,
+    running var in [0.8, 1.2].  The BN closing each residual branch
+    (``sepconv3.bn2``) scales by ~0.1, so the 20 residual blocks grow
+    activations only ~10x while the logits still depend strongly on every
+    block (a 10% change of the middle flow's pointwise weights moves them
+    by O(1), and the argmax takes several classes)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if not v.dtype.is_floating_point:
+            out[k] = v.clone()
+            continue
+        if k.endswith("running_var"):
+            a = 0.8 + 0.4 * rng.random(shape)
+        elif k.endswith("running_mean"):
+            a = 0.05 * rng.standard_normal(shape)
+        elif v.ndim == 1 and k.endswith(".weight"):  # BN scale
+            loc = 0.1 if "sepconv3.bn2" in k else 1.0
+            a = loc + 0.02 * rng.standard_normal(shape)
+        elif v.ndim == 1:  # biases
+            a = 0.05 * rng.standard_normal(shape)
+        else:
+            fan_in = int(np.prod(shape[1:]))
+            a = np.sqrt(2.0 / max(fan_in, 1)) * rng.standard_normal(shape)
+        out[k] = torch.from_numpy(a.astype(np.float32))
+    return out
+
+
+def to_flax(state):
+    """Port ``state_dict`` -> (params, batch_stats) through
+    ``cervical_tpu.train.torch_import.convert_deeplab``."""
+    from cervical_tpu.train import torch_import as TI
+    sd = {k: v.numpy() for k, v in state.items() if v.dtype.is_floating_point}
+    params, stats, missing = TI.convert_deeplab(sd, "xception", strict=True)
+    assert not missing
+    return params, stats
+
+
+def scaled_atol(ref, floor=5e-4, rel=2e-4):
+    """Absolute tolerance for fp32 logits after ~100 convs: both stacks
+    round in fp32 in another order, so the error grows with the scale."""
+    return max(floor, rel * float(np.abs(ref).max()))
