@@ -5,7 +5,8 @@ The JAX package ``cervical_tpu`` stays the reference: every ported function
 is held against its JAX counterpart on the same numpy inputs by the
 ``tests/test_torch_port_*.py`` files.  This package imports ``torch`` and
 never JAX or anything of ``cervical_tpu``; it keeps its own copies of the
-host-only pieces it needs (config dataclasses, numpy metrics).
+host-only pieces it needs (config dataclasses, numpy metrics, the VOC
+data layer, the LR schedules).
 
 Ported so far (the serving slice):
 
@@ -17,6 +18,14 @@ Ported so far (the serving slice):
   (built with ``nvcc`` at first use) and a plain PyTorch version.
 * ``cervical_tpu_torch.inference.predictor`` — ``SegPredictor``; the CLI is
   ``python -m cervical_tpu_torch.predict``.
+
+The training slice:
+
+* ``cervical_tpu_torch.train.seg_trainer`` — the segmentation train and
+  eval steps and ``SegTrainer.run_epoch``/``evaluate_miou``;
+* ``cervical_tpu_torch.ops.warp`` — the train-time augmentation kernels
+  K1-K3, hand-written in ``csrc/warp.cu``, with their plain versions;
+* ``losses``, ``metrics.confusion_matrix``, ``data``, train-mode DeepLab.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

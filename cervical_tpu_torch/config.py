@@ -2,8 +2,10 @@
 
 Mirrors ``cervical_tpu/config.py`` (``SegDataConfig``, ``SegTrainConfig``,
 ``load_config``, ``parse_cli_overrides``) with the same names, defaults and
-override syntax (``--a.b.c value``).  Only the fields the predictor reads
-are here; the trainer's fields arrive with the training slice.
+override syntax (``--a.b.c value``).  The predictor's fields and those the
+segmentation train and eval steps read are here.  Fields that only tune how
+JAX dispatches work to the TPU are accepted, so configs written for the JAX
+package load unchanged, and have no effect in the port (each says so).
 """
 
 from __future__ import annotations
@@ -21,22 +23,88 @@ except ImportError:  # pragma: no cover
 
 @dataclass
 class SegDataConfig:
-    """Input geometry and classes (train.py:131-137,396-399)."""
+    """VOC-layout dataset config (train.py:131-137,396-399)."""
 
+    dataset_path: str = "VOCdevkit"
     input_shape: Tuple[int, int] = (512, 512)
     num_classes: int = 5
+    # augmentation knobs (dataloader.py:55)
+    jitter: float = 0.3
+    hue: float = 0.1
+    sat: float = 0.7
+    val: float = 0.3
+    scale_min: float = 0.25
+    scale_max: float = 2.0
+    # 2-shear rotation approximation of the einsum backend; the kernel
+    # backend is always the exact Paeth 3-shear.  The einsum backend is not
+    # ported yet, so this has no effect in the port.
+    two_shear: bool = False
+    # the train step's augmentation backend: "pallas" runs the K1-K3
+    # kernels (``ops/warp.augment_batch_kernels``; the name is the JAX
+    # package's); "einsum" (the JAX default) is not ported yet and the
+    # trainer raises NotImplementedError for it.
+    aug_backend: str = "einsum"
+    # JAX scanned-step dispatch knob; no effect in the port (no scan).
+    aug_pre_batch: bool = False
 
 
 @dataclass
 class SegTrainConfig:
-    """Segmentation config: the model and dtype fields the predictor reads."""
+    """Segmentation trainer config (reference literals: train.py:50-281)."""
 
     data: SegDataConfig = field(default_factory=SegDataConfig)
     backbone: str = "xception"  # train.py:94
+    pretrained: str = ""  # converted backbone weights ('' = random init)
     downsample_factor: int = 16  # train.py:129
-    seed: int = 11  # train.py:283; seeds the random init when no weights
+    init_epoch: int = 0
+    freeze_epoch: int = 20  # train.py:176-187
+    unfreeze_epoch: int = 200
+    freeze_batch_size: int = 16
+    unfreeze_batch_size: int = 8
+    freeze_train: bool = False  # train.py:192 (reference default False)
+    init_lr: float = 1e-4  # train.py:205-229 (adam)
+    min_lr_ratio: float = 0.01
+    optimizer_type: str = "adam"
+    momentum: float = 0.9
+    weight_decay: float = 0.0  # reference: 0 for adam
+    lr_decay_type: str = "cos"
+    focal_loss: bool = True  # train.py:259-265
+    dice_loss: bool = True
+    cls_weights: Tuple[float, ...] = (1.0, 1.0, 5.0, 3.0, 4.0)  # train.py:274
+    # checkpoint and eval cadence of the fit loop, which is not ported yet:
+    # accepted so that the JAX package's configs load, no effect in the port
+    save_period: int = 10
+    save_dir: str = "logs"
+    eval_period: int = 10
+    predictor_eval: bool = False
+    seed: int = 11  # train.py:283; seeds init, aug params and dropout
+    # from-scratch init: "normal" replicates the reference's weights_init
+    # (every conv N(0,.02), BN scale N(1,.02)); "none" keeps torch defaults
+    weights_init: str = "normal"
     # bf16 compute with fp32 params and BatchNorm (the reference's AMP path)
     dtype: str = "bfloat16"
+    # JAX conv-lowering knob for the head; no effect in the port (cuDNN)
+    head_conv_backend: str = ""
+    # run the eval step's forward with the fused middle-flow kernels (K4,
+    # ``ops/middle_flow.py``; xception only); the train step never does
+    fused_middle_eval: bool = False
+    # JAX device-mesh size; the port runs on one card
+    num_devices: Optional[int] = None
+    eval_batch_size: int = 8
+    # steps dispatched ahead of the host reading their metrics: the epoch
+    # loop keeps this many unsynced steps in flight
+    pipeline_depth: int = 8
+    # JAX scan length; no effect in the port (one step per call)
+    steps_per_call: int = 8
+    # JAX dropout PRNG implementation; no effect in the port (the model's
+    # dropouts draw from its own torch.Generator)
+    dropout_rng_impl: str = "rbg"
+    # JAX rematerialization knob; no effect in the port
+    remat_entry: bool = False
+    # JAX device-resident epoch; not ported yet, no effect in the port
+    device_resident: bool = False
+    # JAX resident-epoch shuffle mode; no effect in the port
+    resident_shuffle: str = "gather"
 
 
 def _update_dataclass(obj, data: dict):

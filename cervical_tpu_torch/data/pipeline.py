@@ -1,0 +1,78 @@
+"""Host-to-card feed: weight-0 padding of ragged batches and uploads from
+pinned memory ahead of use — port of ``cervical_tpu/data/pipeline.py`` for
+one card (the JAX module also slices each host's share of a multi-host
+batch; the port has one process).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Iterable, Iterator
+
+import numpy as np
+import torch
+
+
+def host_local_batches(loader: Iterable, divisor: int = 1,
+                       with_weights: bool = False) -> Iterator:
+    """Pad each batch by repeating its last row up to a multiple of
+    ``divisor``; with ``with_weights`` append a (B,) float32 vector that is
+    0 on the padded rows.  The eval steps pass it as ``sample_weights``, so
+    padded rows count in no loss and no confusion cell."""
+    for batch in loader:
+        batch = tuple(batch)
+        n = len(batch[0])
+        pad = (-n) % divisor
+        weights = np.ones(n + pad, np.float32)
+        if pad:
+            batch = tuple(np.concatenate([x, np.repeat(x[-1:], pad, axis=0)])
+                          for x in batch)
+            weights[n:] = 0.0
+        yield batch + (weights,) if with_weights else batch
+
+
+def device_prefetch(loader: Iterable, device, depth: int = 2,
+                    with_weights: bool = False, divisor: int = 1) -> Iterator:
+    """Batches of ``loader`` as tensors on ``device``: a thread reads (and,
+    for a CUDA device, pins) up to ``depth`` host batches ahead, the caller's
+    thread enqueues each upload just before it is used.  Padding and weights
+    as :func:`host_local_batches`.  A loader's exception is raised here."""
+    device = torch.device(device)
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    done = object()
+    stop = threading.Event()
+    err: list = []
+
+    def pin(a):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        return t.pin_memory() if device.type == "cuda" else t
+
+    def producer():
+        try:
+            for batch in host_local_batches(loader, divisor, with_weights):
+                if stop.is_set():
+                    return
+                q.put(tuple(pin(a) for a in batch))
+        except Exception as e:  # delivered to the consumer below
+            err.append(e)
+        finally:
+            q.put(done)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is done:
+                if err:
+                    raise err[0]
+                return
+            yield tuple(t.to(device, non_blocking=True) for t in item)
+    finally:
+        stop.set()
+        while thread.is_alive():  # unblock a producer parked on a full queue
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                thread.join(timeout=0.01)

@@ -1,0 +1,203 @@
+"""Segmentation losses — port of the segmentation half of
+``cervical_tpu/losses.py`` (reference: ``deeplabv3_training.py:9-56`` and
+the f-score monitor ``utils_metrics.py:13-35``).
+
+Logits are NHWC ``(B, H, W, C)`` and labels ``(B, H, W)`` integers, as in
+JAX; the ignore id is ``num_classes`` (the VOC white border).  Optional
+``sample_weights`` (B,) make weight-0 rows (padding of a ragged eval batch)
+count exactly as if absent.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from cervical_tpu_torch.ops.image import _interp_tensor
+
+
+def _flat_ce_terms(logits, labels, class_weights, num_classes):
+    """Per-pixel weighted NLL ``w[y] * (-log p_y)`` (0 where ignored), the
+    weights and the validity mask — ``CrossEntropyLoss(weight=w,
+    ignore_index=num_classes, reduction='none')``."""
+    logits = logits.to(torch.float32)
+    valid = labels < num_classes
+    safe = torch.where(valid, labels, torch.zeros_like(labels)).long()
+    logp = torch.log_softmax(logits, dim=-1)
+    eq = (safe[..., None] == torch.arange(num_classes, device=logits.device)
+          ).to(torch.float32)
+    nll = -torch.sum(logp * eq, dim=-1)
+    if class_weights is None:
+        wy = valid.to(torch.float32)
+    else:
+        w = torch.as_tensor(class_weights, dtype=torch.float32,
+                            device=logits.device)
+        wy = torch.where(valid, torch.sum(w * eq, dim=-1),
+                         torch.zeros_like(nll))
+    return nll * wy, wy, valid
+
+
+def _row_weights(sample_weights, ndim, device):
+    """(B,) weights broadcast over per-pixel terms of rank ``ndim``."""
+    w = torch.as_tensor(sample_weights, dtype=torch.float32, device=device)
+    return w.reshape(w.shape + (1,) * (ndim - 1))
+
+
+def cross_entropy_loss(logits, labels, class_weights=None, num_classes=None,
+                       sample_weights=None):
+    """Weighted CE (``CE_Loss``, deeplabv3_training.py:9-19): the weighted
+    mean divides by the summed weights of the non-ignored targets."""
+    if num_classes is None:
+        num_classes = logits.shape[-1]
+    wnll, wy, _ = _flat_ce_terms(logits, labels, class_weights, num_classes)
+    if sample_weights is not None:
+        rw = _row_weights(sample_weights, wnll.ndim, wnll.device)
+        wnll, wy = wnll * rw, wy * rw
+    return torch.sum(wnll) / torch.clamp(torch.sum(wy), min=1e-12)
+
+
+def focal_loss(logits, labels, class_weights=None, num_classes=None,
+               alpha=0.5, gamma=2.0, sample_weights=None):
+    """Focal loss (``Focal_Loss``, deeplabv3_training.py:21-36), reference
+    quirks kept: ``pt`` comes from the *weighted* NLL, ``alpha`` scales the
+    log term, and the mean runs over all pixels, ignored ones included."""
+    if num_classes is None:
+        num_classes = logits.shape[-1]
+    wnll, _, _ = _flat_ce_terms(logits, labels, class_weights, num_classes)
+    focal = (1.0 - torch.exp(-wnll)) ** gamma * alpha * wnll
+    if sample_weights is None:
+        return torch.mean(focal)
+    rw = _row_weights(sample_weights, focal.ndim, focal.device)
+    per_row = focal[0].numel()
+    return torch.sum(focal * rw) / torch.clamp(torch.sum(rw) * per_row,
+                                               min=1e-12)
+
+
+def _dice_terms(probs, target):
+    tp = torch.sum(target[..., :-1] * probs, dim=(0, 1))
+    fp = torch.sum(probs, dim=(0, 1)) - tp
+    fn = torch.sum(target[..., :-1], dim=(0, 1)) - tp
+    return tp, fp, fn
+
+
+def _score(tp, fp, fn, beta, smooth):
+    return ((1 + beta ** 2) * tp + smooth) / \
+        ((1 + beta ** 2) * tp + beta ** 2 * fn + fp + smooth)
+
+
+def dice_loss(logits, one_hot_labels, beta=1.0, smooth=1e-5,
+              sample_weights=None):
+    """Soft dice (``Dice_loss``, deeplabv3_training.py:38-56) over one-hot
+    targets with ``num_classes + 1`` channels; the trailing ignore channel
+    is dropped from tp/fn."""
+    b, c = logits.shape[0], logits.shape[-1]
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).reshape(b, -1, c)
+    target = one_hot_labels.to(torch.float32).reshape(
+        b, -1, one_hot_labels.shape[-1])
+    if sample_weights is not None:
+        rw = _row_weights(sample_weights, 3, probs.device)
+        probs, target = probs * rw, target * rw
+    return 1.0 - torch.mean(_score(*_dice_terms(probs, target), beta,
+                                   smooth))
+
+
+def f_score(logits, one_hot_labels, beta=1.0, smooth=1e-5, threshold=0.5,
+            sample_weights=None):
+    """Thresholded dice coefficient monitor (utils_metrics.py:13-35)."""
+    b, c = logits.shape[0], logits.shape[-1]
+    probs = torch.softmax(logits.to(torch.float32), dim=-1).reshape(b, -1, c)
+    probs = (probs > threshold).to(torch.float32)
+    target = one_hot_labels.to(torch.float32).reshape(
+        b, -1, one_hot_labels.shape[-1])
+    if sample_weights is not None:
+        rw = _row_weights(sample_weights, 3, probs.device)
+        probs, target = probs * rw, target * rw
+    return torch.mean(_score(*_dice_terms(probs, target), beta, smooth))
+
+
+def seg_loss_bundle(logits, labels, class_weights=None, num_classes=None, *,
+                    focal=True, alpha=0.5, gamma=2.0, dice=True, beta=1.0,
+                    smooth=1e-5, threshold=0.5, sample_weights=None,
+                    resize_to=None, align_corners=True, return_preds=False):
+    """(focal-or-CE [+ dice], f_score) in class-major layout: the
+    composition of :func:`focal_loss` / :func:`cross_entropy_loss`,
+    :func:`dice_loss` and :func:`f_score` with one shared softmax and
+    one-hot, every intermediate ``(C, B, HW)``.
+
+    ``resize_to=(H, W)``: the model's final x4 bilinear upsample
+    (``align_corners=True``) done here, in class-major layout, on the
+    quarter-resolution logits of ``DeepLab(x, resize_logits=False)``.
+    Returns ``(total, main, f_score)`` (``total = main [+ dice]``), and the
+    (B, H, W) int64 argmax with ``return_preds``.
+    """
+    if num_classes is None:
+        num_classes = logits.shape[-1]
+    nc = num_classes
+    b = logits.shape[0]
+    lt = logits.to(torch.float32).movedim(-1, 0)             # (C, B, h, w)
+    if resize_to is not None and tuple(resize_to) != tuple(logits.shape[1:3]):
+        h, w = logits.shape[1], logits.shape[2]
+        oh, ow = resize_to
+        wh = _interp_tensor(h, oh, align_corners, lt.device, torch.float32)
+        ww = _interp_tensor(w, ow, align_corners, lt.device, torch.float32)
+        lt = torch.einsum("oh,cbhw->cbow", wh, lt)
+        lt = torch.einsum("pw,cbow->cbop", ww, lt)
+        out_hw = (oh, ow)
+    else:
+        out_hw = tuple(logits.shape[1:3])
+    n = out_hw[0] * out_hw[1]
+    lt = lt.reshape(nc, b, n)
+    lab = labels.reshape(b, n).long()
+    valid = lab < nc
+    safe = torch.where(valid, lab, torch.zeros_like(lab))
+    eqf = (safe[None] == torch.arange(nc, device=lt.device)[:, None, None]
+           ).to(torch.float32)
+    logp = torch.log_softmax(lt, dim=0)
+    nll = -torch.sum(logp * eqf, dim=0)
+    if class_weights is None:
+        wy = valid.to(torch.float32)
+    else:
+        w = torch.as_tensor(class_weights, dtype=torch.float32,
+                            device=lt.device)
+        wy = torch.where(valid, torch.sum(w[:, None, None] * eqf, dim=0),
+                         torch.zeros_like(nll))
+    wnll = nll * wy
+
+    rw = None
+    if sample_weights is not None:
+        rw = torch.as_tensor(sample_weights, dtype=torch.float32,
+                             device=lt.device)[:, None]       # (B, 1)
+    if focal:
+        f = (1.0 - torch.exp(-wnll)) ** gamma * alpha * wnll
+        main = torch.mean(f) if rw is None else \
+            torch.sum(f * rw) / torch.clamp(torch.sum(rw) * n, min=1e-12)
+    elif rw is None:
+        main = torch.sum(wnll) / torch.clamp(torch.sum(wy), min=1e-12)
+    else:
+        main = torch.sum(wnll * rw) / torch.clamp(torch.sum(wy * rw),
+                                                  min=1e-12)
+
+    probs_raw = torch.softmax(lt, dim=0)                      # (C, B, HW)
+    tgt = eqf * valid[None].to(torch.float32)   # == one_hot[..., :nc]
+    probs = probs_raw
+    if rw is not None:
+        probs, tgt = probs * rw[None], tgt * rw[None]
+
+    total = main
+    if dice:
+        tp = torch.sum(tgt * probs, dim=(1, 2))
+        fp = torch.sum(probs, dim=(1, 2)) - tp
+        fn = torch.sum(tgt, dim=(1, 2)) - tp
+        total = total + (1.0 - torch.mean(_score(tp, fp, fn, beta, smooth)))
+
+    # f_score thresholds the raw probabilities, then applies row weights
+    pb = (probs_raw > threshold).to(torch.float32)
+    if rw is not None:
+        pb = pb * rw[None]
+    tp2 = torch.sum(tgt * pb, dim=(1, 2))
+    fp2 = torch.sum(pb, dim=(1, 2)) - tp2
+    fn2 = torch.sum(tgt, dim=(1, 2)) - tp2
+    fs = torch.mean(_score(tp2, fp2, fn2, beta, smooth))
+    if return_preds:
+        preds = torch.argmax(lt, dim=0).reshape((b,) + out_hw)
+        return total, main, fs, preds
+    return total, main, fs

@@ -1,10 +1,12 @@
-"""Segmentation metrics (numpy, host-side) — the port's own copy of the
-confusion-matrix half of ``cervical_tpu/metrics.py``
-(``utils_metrics.py:38-193`` of the reference)."""
+"""Segmentation metrics — the port's own copy of the confusion-matrix half
+of ``cervical_tpu/metrics.py`` (``utils_metrics.py:38-193`` of the
+reference): numpy on the host, and :func:`confusion_matrix` on the device
+for the eval step."""
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def fast_hist(label, pred, num_classes):
@@ -15,6 +17,27 @@ def fast_hist(label, pred, num_classes):
     return np.bincount(
         num_classes * label[k].astype(int) + pred[k], minlength=num_classes**2
     ).reshape(num_classes, num_classes)
+
+
+def confusion_matrix(labels: torch.Tensor, preds: torch.Tensor,
+                     num_classes: int) -> torch.Tensor:
+    """(num_classes, num_classes) int64 confusion matrix on the tensors'
+    device, rows ground truth, columns prediction; labels outside
+    [0, num_classes) are dropped — :func:`fast_hist` semantics, the
+    counterpart of ``confusion_matrix_jax``.  A scatter-add of integer
+    counts into a fixed-size histogram: exact, and unlike ``torch.bincount``
+    (which reads the input's maximum back to the host) it does not make the
+    host wait for the card."""
+    labels = labels.reshape(-1).long()
+    preds = preds.reshape(-1).long()
+    keep = (labels >= 0) & (labels < num_classes)
+    # dropped pixels go to one extra bin past the matrix
+    idx = torch.where(keep, num_classes * labels + preds,
+                      torch.full_like(labels, num_classes * num_classes))
+    counts = torch.zeros(num_classes * num_classes + 1, dtype=torch.int64,
+                         device=idx.device)
+    counts.scatter_add_(0, idx, torch.ones_like(idx))
+    return counts[:num_classes * num_classes].reshape(num_classes, num_classes)
 
 
 def per_class_iu(hist):

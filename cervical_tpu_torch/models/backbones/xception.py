@@ -9,7 +9,8 @@ so a ``state_dict`` maps onto the JAX package's params through its
 runs it in ``channels_last``.
 
 BatchNorm uses the reference's ``bn_mom = 0.0003`` (torch convention) and
-eps 1e-5.
+eps 1e-5; in train mode its running variance follows flax
+(``ops.conv.BatchNorm2d``).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from cervical_tpu_torch.ops.conv import Conv2d
+from cervical_tpu_torch.ops.conv import BatchNorm2d, Conv2d
 from cervical_tpu_torch.ops.depthwise import depthwise_conv3x3
 from cervical_tpu_torch.ops.middle_flow import fold_middle_flow, middle_flow_eval
 
@@ -56,10 +57,10 @@ class SeparableConv(nn.Module):
         super().__init__()
         self.activate_first = activate_first
         self.depthwise = DepthwiseConv3x3(inp, stride, dilation, compute_dtype)
-        self.bn1 = nn.BatchNorm2d(inp, **_BN)
+        self.bn1 = BatchNorm2d(inp, **_BN)
         self.pointwise = Conv2d(inp, features, 1, bias=False,
                                 compute_dtype=compute_dtype)
-        self.bn2 = nn.BatchNorm2d(features, **_BN)
+        self.bn2 = BatchNorm2d(features, **_BN)
 
     def forward(self, x):
         if self.activate_first:
@@ -87,7 +88,7 @@ class XceptionBlock(nn.Module):
         if features != inp or stride != 1:
             self.skip = Conv2d(inp, features, 1, stride=stride, bias=False,
                                compute_dtype=compute_dtype)
-            self.skipbn = nn.BatchNorm2d(features, **_BN)
+            self.skipbn = BatchNorm2d(features, **_BN)
         else:
             self.skip = None
         filters = features if grow_first else inp
@@ -140,9 +141,9 @@ class XceptionBackbone(nn.Module):
         dt = compute_dtype
         self.conv1 = Conv2d(3, 32, 3, stride=2, padding=1, bias=False,
                             compute_dtype=dt)
-        self.bn1 = nn.BatchNorm2d(32, **_BN)
+        self.bn1 = BatchNorm2d(32, **_BN)
         self.conv2 = Conv2d(32, 64, 3, padding=1, bias=False, compute_dtype=dt)
-        self.bn2 = nn.BatchNorm2d(64, **_BN)
+        self.bn2 = BatchNorm2d(64, **_BN)
         self.block1 = XceptionBlock(64, 128, 2, compute_dtype=dt)
         self.block2 = XceptionBlock(128, 256, stride_list[0], compute_dtype=dt)
         self.block3 = XceptionBlock(256, 728, stride_list[1], compute_dtype=dt)

@@ -11,13 +11,14 @@ logits out at input resolution.  Xception only in this port so far.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 import torch.nn as nn
 
 from cervical_tpu_torch.models.backbones.xception import XceptionBackbone
-from cervical_tpu_torch.ops.conv import Conv2d
+from cervical_tpu_torch.ops.conv import BatchNorm2d, Conv2d
 from cervical_tpu_torch.ops.image import resize_bilinear
 
 _BN = dict(momentum=0.1, eps=1e-5)
@@ -30,7 +31,27 @@ def _conv_bn_relu(inp: int, features: int, kernel: int = 1, dilation: int = 1,
     return nn.Sequential(
         Conv2d(inp, features, kernel, padding=dilation * (kernel // 2),
                dilation=dilation, bias=True, compute_dtype=compute_dtype),
-        nn.BatchNorm2d(features, **_BN), nn.ReLU())
+        BatchNorm2d(features, **_BN), nn.ReLU())
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` drawing its masks from its own generator, seeded with
+    ``seed`` on the device of its first train-mode input, so a seeded run
+    repeats.  (JAX's dropout bits differ anyway: no parity constraint.)"""
+
+    def __init__(self, p: float, seed: int = 0):
+        super().__init__(p)
+        self.seed = seed
+        self._gen: Optional[torch.Generator] = None
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        if self._gen is None or self._gen.device != x.device:
+            self._gen = torch.Generator(x.device).manual_seed(self.seed)
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
+                                              generator=self._gen)
+        return x * keep * (1.0 / (1.0 - self.p))
 
 
 def _resize_nchw(x, out_hw, align_corners=True):
@@ -52,7 +73,7 @@ class ASPP(nn.Module):
         self.branch4 = _conv_bn_relu(inp, features, 3, 18 * rate, dt)
         self.branch5_conv = Conv2d(inp, features, 1, bias=True,
                                    compute_dtype=dt)
-        self.branch5_bn = nn.BatchNorm2d(features, **_BN)
+        self.branch5_bn = BatchNorm2d(features, **_BN)
         self.branch5_relu = nn.ReLU()
         self.conv_cat = _conv_bn_relu(features * 5, features, 1,
                                       compute_dtype=dt)
@@ -74,13 +95,15 @@ class DeepLab(nn.Module):
     ``dtype`` is the compute dtype (params stay fp32).  ``fused_middle``
     routes the backbone's blocks 4-19 through the middle-flow kernels in
     eval mode.  ``forward(x, resize_logits=True)``: (B, 3, H, W) ->
-    fp32 logits (B, num_classes, H, W).
+    fp32 logits (B, num_classes, H, W).  In train mode BatchNorm uses batch
+    statistics and the two head dropouts (0.5, 0.1) draw from generators
+    seeded with ``dropout_seed`` and ``dropout_seed + 1``.
     """
 
     def __init__(self, num_classes: int = 5, backbone: str = "xception",
                  downsample_factor: int = 16,
                  dtype: Optional[torch.dtype] = None,
-                 fused_middle: bool = False):
+                 fused_middle: bool = False, dropout_seed: int = 0):
         super().__init__()
         if downsample_factor not in (8, 16):
             raise ValueError(
@@ -100,15 +123,22 @@ class DeepLab(nn.Module):
         self.shortcut_conv = _conv_bn_relu(256, 48, 1, compute_dtype=dt)
         self.cat_conv = nn.Sequential(
             Conv2d(304, 256, 3, padding=1, bias=True, compute_dtype=dt),
-            nn.BatchNorm2d(256, **_BN), nn.ReLU(), nn.Dropout(0.5),
+            BatchNorm2d(256, **_BN), nn.ReLU(), Dropout(0.5, dropout_seed),
             Conv2d(256, 256, 3, padding=1, bias=True, compute_dtype=dt),
-            nn.BatchNorm2d(256, **_BN), nn.ReLU(), nn.Dropout(0.1))
+            BatchNorm2d(256, **_BN), nn.ReLU(),
+            Dropout(0.1, dropout_seed + 1))
         self.cls_conv = Conv2d(256, num_classes, 1, bias=True,
                                compute_dtype=dt)
 
-    def forward(self, x, resize_logits: bool = True):
+    def forward(self, x, resize_logits: bool = True,
+                freeze_backbone: bool = False):
+        """``freeze_backbone``: the reference's requires_grad=False freeze
+        phase — the backbone runs without autograd, so its backward pass
+        is never built, while its BatchNorm running stats still update in
+        train mode (the JAX package's stop_gradient at the boundary)."""
         h, w = x.shape[2], x.shape[3]
-        low, deep = self.backbone(x)
+        with torch.no_grad() if freeze_backbone else contextlib.nullcontext():
+            low, deep = self.backbone(x)
         deep = self.aspp(deep)
         low = self.shortcut_conv(low)
         deep = _resize_nchw(deep, (low.shape[2], low.shape[3]))

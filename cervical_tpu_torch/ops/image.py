@@ -38,9 +38,12 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarr
 @functools.lru_cache(maxsize=64)
 def _interp_tensor(in_size: int, out_size: int, align_corners: bool,
                    device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    """:func:`_interp_matrix` resident on ``device`` (uploaded once)."""
-    return torch.from_numpy(_interp_matrix(in_size, out_size, align_corners)
-                            ).to(device=device, dtype=dtype)
+    """:func:`_interp_matrix` resident on ``device`` (uploaded once).  Made
+    outside inference mode, so a matrix first cached by an inference call
+    can still be saved for a backward pass."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(
+            in_size, out_size, align_corners)).to(device=device, dtype=dtype)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = True):
@@ -105,3 +108,27 @@ def unletterbox_logits(logits_hwc: torch.Tensor, src_hw, dst_hw):
     nh, nw, top, left = letterbox_params(src_hw, dst_hw)
     cropped = logits_hwc[..., top:top + nh, left:left + nw, :]
     return resize_bilinear(cropped, src_hw, align_corners=False)
+
+
+def letterbox_label(label: torch.Tensor, dst_hw, fill=0):
+    """Nearest-neighbor letterbox for (H, W) integer masks
+    (dataloader.py:74-77)."""
+    ih, iw = label.shape[:2]
+    h, w = dst_hw
+    nh, nw, top, left = letterbox_params((ih, iw), (h, w))
+    dev = label.device
+    rows = torch.clamp((torch.arange(nh, device=dev) + 0.5) * ih / nh, 0,
+                       ih - 1).long()
+    cols = torch.clamp((torch.arange(nw, device=dev) + 0.5) * iw / nw, 0,
+                       iw - 1).long()
+    canvas = torch.full((h, w), fill, dtype=label.dtype, device=dev)
+    canvas[top:top + nh, left:left + nw] = label[rows][:, cols]
+    return canvas
+
+
+def one_hot_with_ignore(labels: torch.Tensor, num_classes: int):
+    """Labels -> f32 one-hot with an extra trailing ignore channel: values
+    >= num_classes land in it (dataloader.py:41-48)."""
+    clamped = torch.clamp(labels.long(), max=num_classes)
+    return torch.nn.functional.one_hot(clamped, num_classes + 1).to(
+        torch.float32)

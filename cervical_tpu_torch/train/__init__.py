@@ -1,1 +1,2 @@
-"""Model construction and weight import."""
+"""Model construction, the segmentation trainer, LR schedules and weight
+import."""

@@ -14,12 +14,30 @@
    versions and a library yardstick with CUDA events, beside the least time
    the card could take (the larger of bytes over 3.35 TB/s and operations
    over 989 TFLOP/s bf16 tensor / 67 TFLOP/s fp32, H100 SXM data sheet).
-3. Drives the main path: ``SegPredictor(fused_middle=True)`` at xception,
-   os16, 512², 5 classes, bf16, seeded random weights, ``predict_masks`` on
-   16 synthetic 960x1280 images at batch 8.  The launch counts are zeroed
-   just before and read just after; every kernel must have launched.  The
-   masks must agree with the unfused predictor on >= 99% of pixels.
-4. Prints one ``{"kernels": [...]}`` line, then as the last line
+3. Drives the serving path: ``SegPredictor(fused_middle=True)`` at
+   xception, os16, 512², 5 classes, bf16, seeded random weights,
+   ``predict_masks`` on 16 synthetic 960x1280 images at batch 8.  The launch
+   counts are zeroed just before and read just after; every kernel must
+   have launched.  The masks must agree with the unfused predictor on >= 99%
+   of pixels.
+4. Holds the augmentation kernels K1 ``warp_images`` (bf16 and uint8 out),
+   K2 ``warp_labels`` and K3 ``photometric`` (select/all/none, bf16 and
+   uint8 in) against their plain versions at batch 8, 512², on parameter
+   rows sampled as the train step samples them (rotation on 2 images, blur
+   on 2): K2 exact, K1 and K3 within one bf16 step on at most 1e-4 of the
+   elements.  Times each beside its plain version and its bound.
+5. Drives the training path: ``SegTrainer`` at the default config (xception,
+   os16, 512², 5 classes, bf16, Adam 1e-4, focal + dice, class weights
+   (1,1,5,3,4)) with ``data.aug_backend="pallas"`` on 32 synthetic 512²
+   images: ``run_epoch`` at batch 8 unfrozen, then at batch 16 frozen, each
+   followed by the eval pass over 12 images at batch 8 (one ragged batch,
+   padded with weight-0 rows).  Counts are zeroed before each epoch and read
+   after: K1-K3 launch once per train step.  Losses must be finite, the
+   frozen epoch must leave the backbone's params and Adam state bit-
+   identical, the eval confusion matrix must count every val pixel once.
+   Then times the train step (ms/step, images/s, after warm-up) and reads
+   the card's idle share over profiled steps.
+6. Prints one ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, if any check fails, if there is no
@@ -27,6 +45,7 @@ CUDA device, or if the ``cervical_tpu_torch`` package is not beside it.
 """
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -37,6 +56,12 @@ PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12         # fp32 FLOP/s outside the tensor cores
 TPU_K4 = "cervical_tpu/ops/pallas_xception.py:161"
+TPU_WARP = {"warp_images": "cervical_tpu/ops/pallas_warp.py:298",
+            "warp_labels": "cervical_tpu/ops/pallas_warp.py:325",
+            "photometric": "cervical_tpu/ops/pallas_warp.py:554"}
+NO_LIBRARY = ("no single PyTorch call computes it: F.grid_sample is a direct "
+              "bilinear warp, not the 3-shear with bf16 staging, and there is "
+              "no fused blur + cv2-HSV op")
 
 
 class SmokeFailure(Exception):
@@ -346,6 +371,242 @@ def predictor_phase(torch, MF, g, input_shape=(512, 512),
     return launches
 
 
+def one_step_ok(torch, got, ref, step_rel=2.0 ** -7, step_abs=0.0,
+                max_share=1e-4):
+    """(max abs err, share of differing elements, within?) — every element
+    within one bf16 step (``step_rel`` of the value; ``step_abs`` for uint8
+    counts), at most ``max_share`` differing at all: the CPU tests' bound
+    against JAX."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    share = float((d > 0).float().mean())
+    ok = bool((d <= step_rel * ref.abs() + step_abs).all()) and \
+        share <= max_share
+    return float(d.max()), share, ok
+
+
+def warp_phase(torch, W, A, dev, g, b=8, s=512):
+    """K1-K3 against their plain versions at the train step's shapes; times
+    and bounds.  Returns {kernel: record}."""
+    params = A.sample_augment_params(g, b, rotate_prefix=b // 4,
+                                     blur_suffix=b // 4)
+    wp = W.make_warp_params(params, (s, s), (s, s)).to(dev)
+    images = torch.randint(0, 256, (b, s, s, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+    labels = torch.randint(0, 5, (b, s, s), generator=g,
+                           dtype=torch.uint8).to(dev)
+    x = images.permute(0, 3, 1, 2)  # NHWC read through its permuted view
+    gains, flags = params["gains"].to(dev), params["blur"].to(dev)
+    n_rot = int((params["angle"] != 0).sum())
+    n_blur = int(params["blur"].sum())
+    px = b * s * s
+    recs = {}
+
+    errs, shares = [], []
+    for out_dtype, step_abs, step_rel in ((torch.bfloat16, 0.0, 2.0 ** -7),
+                                          (torch.uint8, 1.0, 0.0)):
+        got = W.warp_images(x, wp, s, out_dtype)
+        torch.cuda.synchronize()
+        ref = W.warp_images_reference(x, wp, s, out_dtype)
+        err, share, ok = one_step_ok(torch, got, ref, step_rel, step_abs)
+        check(ok, f"warp_images ({out_dtype}) disagrees: max {err}, "
+              f"{share:.3g} of elements differ")
+        errs.append(err)
+        shares.append(share)
+    # the function's f32 operations per output pixel, not the kernel's
+    # recomputation: one bilinear resample, 3 channels x 3 two-tap passes
+    # of 2 products, 2 sums and a bf16 rounding (45; the taps and weights
+    # are per row or column); a rotated pixel adds 3 shears, each a shifted
+    # index, its validity test and a 2-op lerp per channel (3 x 9)
+    k1_ops = s * s * (b * 45 + n_rot * 3 * 9)
+    recs["warp_images"] = {
+        "max_abs_err": max(errs), "mismatch_share": max(shares),
+        "ms": cuda_ms(torch, lambda: W.warp_images(x, wp, s), 50),
+        "plain_ms": cuda_ms(torch, lambda: W.warp_images_reference(x, wp, s), 5),
+        "timed": f"({b},3,{s},{s}) uint8 NHWC view -> bf16, {n_rot} rotated",
+        "bounds": (images.numel() + px * 3 * 2 + wp.numel() * 4, k1_ops)}
+
+    got = W.warp_labels(labels, wp, s)
+    torch.cuda.synchronize()
+    ref = W.warp_labels_reference(labels, wp, s)
+    check(torch.equal(got, ref), "warp_labels disagrees with its plain "
+          f"version on {int((got != ref).sum())} pixels")
+    # one nearest resample (a gather and its in-bounds select, 2 ops) per
+    # pixel; a rotated pixel adds 3 shear shifts (index, validity: 4 each)
+    k2_ops = s * s * (b * 2 + n_rot * 3 * 4)
+    recs["warp_labels"] = {
+        "max_abs_err": 0.0, "mismatch_share": 0.0,
+        "ms": cuda_ms(torch, lambda: W.warp_labels(labels, wp, s), 50),
+        "plain_ms": cuda_ms(torch, lambda: W.warp_labels_reference(
+            labels, wp, s), 5),
+        "timed": f"({b},{s},{s}) uint8, {n_rot} rotated",
+        "bounds": (2 * px + wp.numel() * 4, k2_ops)}
+
+    warped = W.warp_images(x, wp, s)
+    warped_u8 = W.warp_images(x, wp, s, torch.uint8)
+    errs, shares = [], []
+    for inp in (warped, warped_u8):
+        for mode in W.BLUR_MODES:
+            got = W.photometric(inp, gains, flags, blur_mode=mode)
+            torch.cuda.synchronize()
+            ref = W.photometric_reference(inp, gains, flags, blur_mode=mode)
+            err, share, ok = one_step_ok(torch, got, ref)
+            check(ok, f"photometric ({inp.dtype}, {mode}) disagrees: max "
+                  f"{err}, {share:.3g} of elements differ")
+            errs.append(err)
+            shares.append(share)
+    # ~40 f32 ops of HSV per pixel, plus 2 x 8 per channel where it blurs
+    k3_ops = s * s * (b * 40 + n_blur * 48)
+    recs["photometric"] = {
+        "max_abs_err": max(errs), "mismatch_share": max(shares),
+        "ms": cuda_ms(torch, lambda: W.photometric(warped, gains, flags), 50),
+        "plain_ms": cuda_ms(torch, lambda: W.photometric_reference(
+            warped, gains, flags), 5),
+        "timed": f"({b},3,{s},{s}) bf16 -> bf16, select, {n_blur} blurred",
+        "bounds": (2 * warped.numel() * 2 + gains.numel() * 4 + b, k3_ops)}
+    for name, r in recs.items():
+        nbytes, ops = r.pop("bounds")
+        r["bound_ms"], r["bound_by"] = bound_ms(nbytes, fp32_ops=ops)
+        r["library_ms"] = None
+        print(f"{name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']}), max_abs_err "
+              f"{r['max_abs_err']:.3g}, {r['mismatch_share']:.3g} of elements "
+              f"differ; {r['timed']}")
+    return recs
+
+
+def device_busy_ms(prof, DeviceType):
+    """Sum of the device-side events (kernels, copies) of a profile."""
+    busy = 0.0
+    for e in prof.key_averages():
+        # user annotations (Optimizer.step#...) repeat their kernels' time
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False) or \
+                e.key.startswith("Activity Buffer"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        busy += (e.self_cuda_time_total if us is None else us) / 1e3
+    return busy
+
+
+def train_phase(torch, W, g, input_shape=(512, 512), n_train=32, n_val=12,
+                timed_steps=8, device="cuda"):
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from cervical_tpu_torch.config import SegTrainConfig
+    from cervical_tpu_torch.data.voc import ArraySegDataset, BatchLoader
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+
+    cfg = SegTrainConfig()
+    check((cfg.backbone, cfg.downsample_factor, cfg.data.num_classes,
+           cfg.dtype, cfg.optimizer_type, cfg.init_lr, cfg.focal_loss,
+           cfg.dice_loss, cfg.cls_weights, cfg.unfreeze_batch_size,
+           cfg.freeze_batch_size) == ("xception", 16, 5, "bfloat16", "adam",
+                                      1e-4, True, True, (1.0, 1.0, 5.0, 3.0,
+                                                         4.0), 8, 16),
+          "SegTrainConfig defaults")
+    cfg.data.aug_backend = "pallas"
+    cfg.data.input_shape = input_shape
+    h, w = input_shape
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31, (1,),
+                                                  generator=g)))
+    train = ArraySegDataset(rng.integers(0, 256, (n_train, h, w, 3)),
+                            rng.integers(0, 5, (n_train, h, w)))
+    val = ArraySegDataset(rng.integers(0, 256, (n_val, h, w, 3)),
+                          rng.integers(0, 5, (n_val, h, w)))
+    trainer = SegTrainer(cfg, device=device)
+    dev = trainer.device
+    xb = torch.from_numpy(train.images[:cfg.unfreeze_batch_size]).to(dev)
+    lb = torch.from_numpy(train.labels[:cfg.unfreeze_batch_size]).to(dev)
+    lr = trainer.lr_schedule(cfg.unfreeze_batch_size, cfg.unfreeze_epoch)(0)
+    trainer.train_step(xb, lb, False, lr)  # warm-up: cuDNN heuristics
+    torch.cuda.synchronize()
+    val_loader = BatchLoader(val, cfg.eval_batch_size, shuffle=False,
+                             drop_last=False)
+    res = {"config": f"xception os16 {h}x{w} 5 classes bf16 adam focal+dice"}
+
+    epochs = []
+    for frozen in (False, True):
+        bs = cfg.freeze_batch_size if frozen else cfg.unfreeze_batch_size
+        loader = BatchLoader(train, bs, seed=3 + frozen)
+        model = trainer.state.model
+        snap = {n: p.detach().clone()
+                for n, p in model.backbone.named_parameters()}
+        adam = {id(p): {k: v.clone() for k, v in st.items()} for p, st in
+                trainer.state.opt_state["backbone"].state.items()}
+        W.reset_launches()
+        t0 = time.perf_counter()
+        r = trainer.run_epoch(loader, val_loader, int(frozen), frozen, lr)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(W.LAUNCHES)
+        steps = len(loader)
+        print(f"run_epoch (frozen={frozen}, batch {bs}): {steps} steps + "
+              f"eval of {n_val} images in {dt:.3f} s; loss "
+              f"{r.train_loss:.5f} val {r.val_loss:.5f} f_score "
+              f"{r.train_f_score:.4f}/{r.val_f_score:.4f}; launches {launches}")
+        for name in W.LAUNCHES:
+            check(launches[name] == steps, f"{name} launched "
+                  f"{launches[name]} times in {steps} train steps")
+        check(all(math.isfinite(v) for v in (r.train_loss, r.val_loss,
+                                             r.train_f_score)),
+              f"non-finite epoch metrics {r}")
+        if frozen:
+            same = all(torch.equal(p, snap[n])
+                       for n, p in model.backbone.named_parameters())
+            same_adam = all(
+                torch.equal(v, adam[id(p)][k]) for p, st in
+                trainer.state.opt_state["backbone"].state.items()
+                for k, v in st.items())
+            check(same and same_adam, "the frozen epoch moved the backbone's "
+                  "params or its Adam state")
+        epochs.append({"frozen": frozen, "batch": bs, "steps": steps,
+                       "seconds": dt, "train_loss": r.train_loss,
+                       "val_loss": r.val_loss, "launches": launches})
+    res["epochs"] = epochs
+    hist = trainer.evaluate_miou(val_loader)["hist"]
+    check(int(hist.sum()) == n_val * h * w, f"eval confusion matrix counts "
+          f"{int(hist.sum())} pixels, expected {n_val * h * w}")
+
+    for _ in range(2):
+        trainer.train_step(xb, lb, False, lr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(timed_steps):
+        m = trainer.train_step(xb, lb, False, lr)
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / timed_steps
+    check(math.isfinite(m["loss"].item()), "non-finite train loss")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(timed_steps):
+            trainer.train_step(xb, lb, False, lr)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    busy = device_busy_ms(prof, DeviceType) / timed_steps
+    # the profiler's own host cost stretches its wall time, so the idle
+    # share divides its device-busy time by the unprofiled step time; no
+    # device events means the profiler could not trace the card
+    idle = 1 - busy / step_ms if busy > 0 else None
+    b = cfg.unfreeze_batch_size
+    res.update({"step_ms": step_ms, "images_per_s": b * 1e3 / step_ms,
+                "profiled_wall_ms_per_step": wall_ms / timed_steps,
+                "device_busy_ms_per_step": busy,
+                "idle_share": idle,
+                "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30})
+    print(f"train step (batch {b}, unfrozen, batch on the card): "
+          f"{step_ms:.3f} ms/step = {b * 1e3 / step_ms:.1f} images/s; "
+          f"profiled: {wall_ms / timed_steps:.3f} ms wall, "
+          f"{busy:.3f} ms device busy per step; idle share "
+          + ("not measured (no device events)" if idle is None
+             else f"{idle:.4f}"))
+    print("train " + json.dumps(res))
+    return {name: sum(e["launches"][name] for e in epochs)
+            for name in W.LAUNCHES}
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "cervical_tpu_torch")):
         print("chip_smoke.py: the cervical_tpu_torch package is not beside "
@@ -358,7 +619,9 @@ def main():
     sys.path.insert(0, HERE)
     import torch.nn.functional as F
     from cervical_tpu_torch.ops import _build
+    from cervical_tpu_torch.ops import augment as A
     from cervical_tpu_torch.ops import middle_flow as MF
+    from cervical_tpu_torch.ops import warp as W
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -381,6 +644,8 @@ def main():
     records, k4 = kernel_phase(torch, F, MF, dev,
                                torch.Generator().manual_seed(0))
     launches = predictor_phase(torch, MF, torch.Generator().manual_seed(1))
+    warp = warp_phase(torch, W, A, dev, torch.Generator().manual_seed(2))
+    train_launches = train_phase(torch, W, torch.Generator().manual_seed(3))
 
     kernels = []
     for r in records:
@@ -393,6 +658,15 @@ def main():
             "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"], "timed_shape": r["timed_shape"]})
+    for name, r in warp.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "cervical_tpu_torch/csrc/warp.cu",
+            "replaces": TPU_WARP[name], "launches": train_launches[name],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": None,
+            "library": NO_LIBRARY, "timed_shape": r["timed"]})
     print(json.dumps({"k4_middle_flow_eval": k4}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,8 +17,9 @@ from cervical_tpu_torch.ops import middle_flow as MF
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA GPU: the middle-flow kernels are CUDA "
-                    "only and have no interpret mode")
+        pytest.skip("needs an NVIDIA GPU: the port's kernels (middle flow, "
+                    "warp, photometric) are CUDA only and have no interpret "
+                    "mode")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -127,3 +128,126 @@ def test_fused_predictor_matches_plain_on_cuda(cuda_device):
     assert (m1 == m0).mean() >= 0.99
     np.testing.assert_allclose(fused.predict_probs(imgs[0]),
                                plain.predict_probs(imgs[0]), atol=0.05)
+
+
+# ---------------------------------------------------------------------------
+# K1 warp_images, K2 warp_labels, K3 photometric (csrc/warp.cu)
+# ---------------------------------------------------------------------------
+
+def _warp_case(seed, b, src_hw, s, angles):
+    from cervical_tpu_torch.ops import augment as A
+    from cervical_tpu_torch.ops import warp as W
+    g = torch.Generator().manual_seed(seed)
+    p = A.sample_augment_params(g, b, rotate_prefix=b // 2,
+                                blur_suffix=b // 2)
+    p["angle"] = torch.tensor(angles, dtype=torch.float32)
+    wp = W.make_warp_params(p, src_hw, (s, s))
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.integers(0, 256, (b,) + src_hw + (3,),
+                                         dtype=np.uint8))
+    lbls = torch.from_numpy(rng.integers(0, 5, (b,) + src_hw, dtype=np.uint8))
+    return p, wp, imgs, lbls
+
+
+@pytest.mark.parametrize("src_hw,s", [((64, 64), 64), ((40, 64), 64),
+                                      ((512, 512), 512)])
+def test_warp_kernels_match_plain(cuda_device, src_hw, s):
+    """K1 and K2 on the card against their plain versions on the same rows:
+    scale above and below 1, flip, paste, +-3/+-10 degree rotations and 0,
+    a non-square source, an NHWC source read through its permuted view.
+    Both repeat the plain versions' f32 ops with the same roundings, so K2
+    is exact and K1 is held to one bf16 step (it is expected exact)."""
+    from cervical_tpu_torch.ops import warp as W
+    _, wp, imgs, lbls = _warp_case(s, 8, src_hw, s,
+                                   [3.0, -3.0, 10.0, -10.0, 0, 0, 0, 0])
+    wpd, xd, ld = wp.to(cuda_device), imgs.to(cuda_device), lbls.to(cuda_device)
+    W.reset_launches()
+    for out_dtype in (torch.bfloat16, torch.uint8):
+        got = W.warp_images(xd.permute(0, 3, 1, 2), wpd, s, out_dtype)
+        ref = W.warp_images_reference(xd.permute(0, 3, 1, 2), wpd, s,
+                                      out_dtype)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        step = 1.0 if out_dtype == torch.uint8 else \
+            2.0 ** -8 * ref.float().abs().clamp(min=1.0)
+        assert bool((err <= step).all()), float(err.max())
+    got = W.warp_labels(ld, wpd, s)
+    assert torch.equal(got, W.warp_labels_reference(ld, wpd, s))
+    assert W.LAUNCHES == {"warp_images": 2, "warp_labels": 1,
+                          "photometric": 0}
+
+
+@pytest.mark.parametrize("mode", ["select", "all", "none"])
+@pytest.mark.parametrize("in_dtype", [torch.uint8, torch.bfloat16,
+                                      torch.float32])
+def test_photometric_kernel_matches_plain(cuda_device, mode, in_dtype):
+    """K3 against its plain version: the same f32 ops in the same order,
+    so the bf16 output is expected exact; held to one bf16 step."""
+    from cervical_tpu_torch.ops import warp as W
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.integers(0, 256, (4, 3, 67, 70)).astype(
+        np.float32)).to(cuda_device, in_dtype)
+    gains = torch.from_numpy(rng.uniform(0.7, 1.3, (4, 3)).astype(
+        np.float32)).to(cuda_device)
+    flags = torch.tensor([True, False, True, False], device=cuda_device)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = W.photometric(x, gains, flags, out_dtype, mode)
+        ref = W.photometric_reference(x, gains, flags, out_dtype, mode)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs()
+        assert bool((err <= 2.0 ** -8 * ref.float().abs() + 1e-7).all()), \
+            float(err.max())
+
+
+def test_augment_batch_kernels_on_card(cuda_device):
+    """The chained pipeline on the card against the same calls on the CPU
+    (plain versions): labels equal, images within one bf16 step."""
+    from cervical_tpu_torch.ops import warp as W
+    p, _, imgs, lbls = _warp_case(3, 8, (64, 64), 64,
+                                  [5.0, -7.0, 0, 0, 0, 0, 0, 0])
+    for carry_u8 in (False, True):
+        gi, gl = W.augment_batch_kernels(imgs.to(cuda_device),
+                                         lbls.to(cuda_device), p, (64, 64),
+                                         carry_u8=carry_u8)
+        ri, rl = W.augment_batch_kernels(imgs, lbls, p, (64, 64),
+                                         carry_u8=carry_u8)
+        assert torch.equal(gl.cpu(), rl)
+        err = (gi.float().cpu() - ri.float()).abs()
+        assert bool((err <= 2.0 ** -8 * ri.float().abs() + 1e-7).all())
+
+
+def test_trainer_epoch_on_card_matches_cpu_losses(cuda_device):
+    """SegTrainer defaults to CUDA; at 64², f32, one unfrozen epoch of 2
+    steps launches K1-K3 once per step, and with dropout off (the CPU and
+    CUDA generators draw different masks) its first train loss matches the
+    same step on the CPU (plain kernel versions) to 1e-3 relative
+    (convolutions sum in another order; TF32 is off)."""
+    from cervical_tpu_torch.config import SegDataConfig, SegTrainConfig
+    from cervical_tpu_torch.data.voc import ArraySegDataset, BatchLoader
+    from cervical_tpu_torch.ops import warp as W
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+    cfg = SegTrainConfig(data=SegDataConfig(input_shape=(64, 64),
+                                            aug_backend="pallas"),
+                         dtype="float32")
+    rng = np.random.default_rng(5)
+    ds = ArraySegDataset(rng.integers(0, 256, (16, 64, 64, 3)),
+                         rng.integers(0, 5, (16, 64, 64)))
+    val = BatchLoader(ds, 4, shuffle=False, drop_last=False)
+    card = SegTrainer(cfg)
+    assert card.device.type == "cuda"
+    W.reset_launches()
+    res = card.run_epoch(BatchLoader(ds, 8, seed=1), val, 0, False, 1e-4)
+    assert W.LAUNCHES == {"warp_images": 2, "warp_labels": 2,
+                          "photometric": 2}
+    assert np.isfinite(res.train_loss)
+    cpu, gpu = SegTrainer(cfg, device="cpu"), SegTrainer(cfg)
+    for m in (*cpu.state.model.modules(), *gpu.state.model.modules()):
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    images = torch.from_numpy(ds.images[:8])
+    labels = torch.from_numpy(ds.labels[:8])
+    m_cpu = cpu.train_step(images, labels, False, 1e-4)
+    m_gpu = gpu.train_step(images.to(cuda_device), labels.to(cuda_device),
+                           False, 1e-4)
+    np.testing.assert_allclose(m_gpu["loss"].item(), m_cpu["loss"].item(),
+                               rtol=1e-3)

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``cervical_tpu_torch``
 loads no JAX, flax, optax, orbax or ``cervical_tpu`` module; its entry
-points default to CUDA; ``chip_smoke.py`` refuses to run without a card or
-without the package."""
+points (predictor, CLI, trainer) default to CUDA; ``chip_smoke.py`` refuses
+to run without a card or without the package."""
 
 import inspect
 import os
@@ -37,7 +37,7 @@ def test_port_imports_no_jax_or_reference_package():
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 15, out.stdout
+    assert n_modules >= 24, out.stdout
 
 
 def test_port_sources_name_no_reference_package():
@@ -57,8 +57,29 @@ def test_port_sources_name_no_reference_package():
 def test_entry_points_default_to_cuda():
     from cervical_tpu_torch.inference.predictor import SegPredictor
     from cervical_tpu_torch import predict
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer, create_state
     assert inspect.signature(SegPredictor).parameters["device"].default == "cuda"
     assert "device" in predict._CLI_KEYS
+    for fn in (SegTrainer, create_state):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_training_slice_modules_import_alone():
+    """Every module of the training slice is importable without JAX, and
+    the kernel module builds nothing at import."""
+    code = (
+        "import sys\n"
+        "import cervical_tpu_torch.ops.warp as W, cervical_tpu_torch.ops.warp_xla,"
+        " cervical_tpu_torch.ops.augment, cervical_tpu_torch.losses,"
+        " cervical_tpu_torch.data.voc, cervical_tpu_torch.data.pipeline,"
+        " cervical_tpu_torch.train.seg_trainer, cervical_tpu_torch.train.schedules\n"
+        "assert W._lib_handle is None\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
 
 
 def test_chip_smoke_refuses_without_card_or_package(tmp_path):

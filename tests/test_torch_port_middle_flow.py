@@ -218,4 +218,6 @@ def test_library_path_follows_the_source(tmp_path):
     assert p1 == _build.library_path(src) and p1.parent == _build.BUILD_DIR
     src.write_text("// v2\n")
     assert _build.library_path(src) != p1
-    assert _build.KERNEL_SOURCES == (MF.SOURCE,) and MF.SOURCE.exists()
+    from cervical_tpu_torch.ops import warp as W
+    assert _build.KERNEL_SOURCES == (MF.SOURCE, W.SOURCE)
+    assert all(p.exists() for p in _build.KERNEL_SOURCES)
