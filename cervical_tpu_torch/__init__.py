@@ -27,6 +27,14 @@ The training slice:
   K1-K3, hand-written in ``csrc/warp.cu``, with their plain versions;
 * ``losses``, ``metrics.confusion_matrix``, ``data``, train-mode DeepLab.
 
+The fit slice:
+
+* ``SegTrainer.fit`` with ``train.checkpoints``, ``train.callbacks``, a
+  graceful stop and ``pretrained`` loading (``train.torch_import``); the
+  CLI is ``python -m cervical_tpu_torch.train_seg``;
+* K5 ``ops.warp.warp_photo_images`` (K1 then K3 in one kernel), behind
+  ``augment_batch_kernels(fused=True)``.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -71,8 +71,10 @@ class SegTrainConfig:
     focal_loss: bool = True  # train.py:259-265
     dice_loss: bool = True
     cls_weights: Tuple[float, ...] = (1.0, 1.0, 5.0, 3.0, 4.0)  # train.py:274
-    # checkpoint and eval cadence of the fit loop, which is not ported yet:
-    # accepted so that the JAX package's configs load, no effect in the port
+    # SegTrainer.fit: a periodic checkpoint every save_period epochs (and at
+    # the last), plus best/last, and the callbacks' logs, under save_dir;
+    # the eval step's mIoU every eval_period epochs, and with predictor_eval
+    # the predictor's mIoU at the original resolution too
     save_period: int = 10
     save_dir: str = "logs"
     eval_period: int = 10
@@ -94,14 +96,16 @@ class SegTrainConfig:
     # steps dispatched ahead of the host reading their metrics: the epoch
     # loop keeps this many unsynced steps in flight
     pipeline_depth: int = 8
-    # JAX scan length; no effect in the port (one step per call)
+    # JAX scan length; no effect in the port (one step per call; fit feeds
+    # a BatchLoader)
     steps_per_call: int = 8
     # JAX dropout PRNG implementation; no effect in the port (the model's
     # dropouts draw from its own torch.Generator)
     dropout_rng_impl: str = "rbg"
     # JAX rematerialization knob; no effect in the port
     remat_entry: bool = False
-    # JAX device-resident epoch; not ported yet, no effect in the port
+    # JAX device-resident epoch; not ported yet, no effect in the port (fit
+    # feeds a BatchLoader)
     device_resident: bool = False
     # JAX resident-epoch shuffle mode; no effect in the port
     resident_shuffle: str = "gather"

@@ -28,6 +28,14 @@ def read_split(dataset_path: str, split: str) -> List[str]:
         return [line.strip().split()[0] for line in f if line.strip()]
 
 
+def cvt_rgb(img):
+    """Coerce a PIL image to 3-channel RGB (``cvtColor``,
+    utils/utils.py:11-16)."""
+    if img.mode == "RGB":
+        return img
+    return img.convert("RGB")
+
+
 class VOCSegDataset:
     """Decode-and-stage dataset over a VOC2007 layout, every image staged
     at ``stage_hw`` (a plain resize: exact for this dataset's native 512x512
@@ -72,7 +80,7 @@ class VOCSegDataset:
         from PIL import Image
         jpg_path, png_path = self.paths(idx)
         with Image.open(jpg_path) as jpg, Image.open(png_path) as png:
-            jpg = jpg.convert("RGB")  # cvtColor (utils/utils.py:11-16)
+            jpg = cvt_rgb(jpg)
             h, w = self.stage_hw
             if jpg.size != (w, h):
                 jpg = jpg.resize((w, h), Image.BILINEAR)
@@ -108,6 +116,11 @@ class ArraySegDataset:
     def load_batch(self, idxs):
         idxs = np.asarray(idxs)
         return self.images[idxs], self.labels[idxs]
+
+    def paths(self, idx: int):
+        raise NotImplementedError(
+            "ArraySegDataset has no backing files (file-path consumers "
+            "like PredictorMiouCallback need a disk dataset)")
 
 
 class BatchLoader:

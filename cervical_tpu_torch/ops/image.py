@@ -36,14 +36,24 @@ def _interp_matrix(in_size: int, out_size: int, align_corners: bool) -> np.ndarr
 
 
 @functools.lru_cache(maxsize=64)
+def _resident_interp(in_size: int, out_size: int, align_corners: bool,
+                     device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    with torch.inference_mode(False):
+        return torch.from_numpy(_interp_matrix(
+            in_size, out_size, align_corners)).to(device=device, dtype=dtype)
+
+
 def _interp_tensor(in_size: int, out_size: int, align_corners: bool,
                    device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """:func:`_interp_matrix` resident on ``device`` (uploaded once).  Made
     outside inference mode, so a matrix first cached by an inference call
-    can still be saved for a backward pass."""
-    with torch.inference_mode(False):
-        return torch.from_numpy(_interp_matrix(
-            in_size, out_size, align_corners)).to(device=device, dtype=dtype)
+    can still be saved for a backward pass.  Under a trace
+    (``torch.export``) a new one each call: a cached one would keep the
+    trace's fake tensor for every later call."""
+    if torch.compiler.is_compiling():
+        return torch.tensor(_interp_matrix(in_size, out_size, align_corners),
+                            device=device, dtype=dtype)
+    return _resident_interp(in_size, out_size, align_corners, device, dtype)
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = True):

@@ -1,9 +1,9 @@
-"""Train-time augmentation kernels K1 ``warp_images``, K2 ``warp_labels``
-and K3 ``photometric``: their warp parameters, their plain PyTorch
-versions, the wrappers of their Hopper kernels, and
-:func:`augment_batch_kernels`, which chains them.
+"""Train-time augmentation kernels K1 ``warp_images``, K2 ``warp_labels``,
+K3 ``photometric`` and K5 ``warp_photo_images`` (K1 then K3 in one kernel):
+their warp parameters, their plain PyTorch versions, the wrappers of their
+Hopper kernels, and :func:`augment_batch_kernels`, which chains them.
 
-Port of ``cervical_tpu/ops/pallas_warp.py`` (two-kernel path).  Each image
+Port of ``cervical_tpu/ops/pallas_warp.py``.  Each image
 is warped by the inverse map ``src = a*dst + b`` per axis (scale, flip,
 paste; flip folded into the sign of ``ax``) with gray fill outside the
 source, then, only where its angle is not 0, rotated about the canvas
@@ -55,11 +55,15 @@ SOURCE = _build.CSRC_DIR / "warp.cu"
 # warp-parameter row layout (float32, one row per image)
 P_AY, P_BY, P_AX, P_BX, P_TANH, P_SINT, P_ANGLE, P_FILL = range(8)
 NPARAMS = 8
+# K5's full row: the warp columns, then the HSV gains and the blur flag
+P_GH, P_GS, P_GV, P_BLUR = 8, 9, 10, 11
+NPARAMS_FULL = 12
 MAX_SHIFT = 64  # shear shifts clip to [-64, 63]: +-10 deg on 512 stays inside
 BLUR_MODES = ("select", "all", "none")
 
 # kernel launches, counted by the wrappers where they launch
-LAUNCHES = {"warp_images": 0, "warp_labels": 0, "photometric": 0}
+LAUNCHES = {"warp_images": 0, "warp_labels": 0, "photometric": 0,
+            "warp_photo_images": 0}
 
 
 def reset_launches() -> None:
@@ -273,6 +277,19 @@ def photometric_reference(images_planar, gains, blur_flags,
     return (torch.stack(_hsv_to_rgb(*hsv), 1) * inv255).to(out_dtype)
 
 
+def warp_photo_images_reference(images_planar, full_params,
+                                out_size: int = None,
+                                out_dtype=torch.bfloat16):
+    """Plain version of K5: (B, 3, Hs, Ws) uint8 and (B, 12) full rows ->
+    (B, 3, S, S) ``out_dtype`` in [0, 1].  The JAX kernel stages the warp
+    in bf16 and blurs in f32 on those values, so it is K3 in "select" mode
+    on K1's bf16 output (equal to JAX's K5 in interpret mode)."""
+    fp = full_params.to(torch.float32)
+    warped = warp_images_reference(images_planar, fp[:, :NPARAMS], out_size)
+    return photometric_reference(warped, fp[:, P_GH:P_GV + 1],
+                                 fp[:, P_BLUR] > 0, out_dtype)
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -293,7 +310,10 @@ def _lib():
                                     i32, vp]
         lib.photometric.argtypes = [vp, i32, vp, vp, vp, i32, i32, i32, i32,
                                     i32, vp]
-        for fn in (lib.warp_images, lib.warp_labels, lib.photometric):
+        lib.warp_photo_images.argtypes = [vp, i64, i64, i64, i64, i32, i32,
+                                          i32, vp, vp, i32, i32, vp]
+        for fn in (lib.warp_images, lib.warp_labels, lib.photometric,
+                   lib.warp_photo_images):
             fn.restype = i32
         _lib_handle = lib
     return _lib_handle
@@ -313,9 +333,9 @@ def _on_card(name, t):
     return True
 
 
-def _params_on(wp, like, b):
-    if tuple(wp.shape) != (b, NPARAMS):
-        raise ValueError(f"warp_params must be ({b}, {NPARAMS}), got "
+def _params_on(wp, like, b, ncols=NPARAMS):
+    if tuple(wp.shape) != (b, ncols):
+        raise ValueError(f"warp_params must be ({b}, {ncols}), got "
                          f"{tuple(wp.shape)}")
     return wp.to(like.device, torch.float32).contiguous()
 
@@ -405,6 +425,35 @@ def photometric(images_planar, gains, blur_flags, out_dtype=torch.bfloat16,
     return out
 
 
+def warp_photo_images(images_planar, full_params, out_size: int = None,
+                      out_dtype=torch.bfloat16):
+    """K5: (B, 3, Hs, Ws) uint8, any strides, and (B, 12) full rows (the
+    warp columns, HSV gains, blur flag) -> (B, 3, S, S) bf16 (or f32) in
+    [0, 1]: K1 then K3 in one kernel, rotation and blur only where the
+    image's angle or flag is set."""
+    if not _on_card("warp_photo_images", images_planar):
+        return warp_photo_images_reference(images_planar, full_params,
+                                           out_size, out_dtype)
+    if images_planar.dtype != torch.uint8 or images_planar.ndim != 4 \
+            or images_planar.shape[1] != 3:
+        raise TypeError("warp_photo_images takes (B, 3, H, W) uint8, got "
+                        f"{tuple(images_planar.shape)} {images_planar.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"warp_photo_images writes bf16 or f32, not "
+                        f"{out_dtype}")
+    b, c, hs, ws = images_planar.shape
+    s = out_size or hs
+    fp = _params_on(full_params, images_planar, b, NPARAMS_FULL)
+    out = torch.empty(b, c, s, s, dtype=out_dtype, device=images_planar.device)
+    if b:
+        _raise_if(_lib().warp_photo_images(
+            images_planar.data_ptr(), *images_planar.stride(), b, hs, ws,
+            fp.data_ptr(), out.data_ptr(), _OUT_KIND[out_dtype], s,
+            _stream(out)), "warp_photo_images")
+        LAUNCHES["warp_photo_images"] += 1
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Full pipeline
 # ---------------------------------------------------------------------------
@@ -420,34 +469,40 @@ def augment_batch_kernels(images, labels, params, dst_hw: Tuple[int, int],
     ``normalized`` else [0, 255]; labels (B, h, w) uint8).
 
     ``params`` may live on the CPU; the rows, gains and flags move to the
-    images' device.  ``blur_capacity=K`` promises that exactly the last K
-    samples blur and splits the photometric pass into a "none" and an
-    "all" call; ``carry_u8`` rounds the warp's output to uint8 before the
-    photometric pass.  ``fused=True`` (one kernel, K5) is not ported yet.
+    images' device.  ``fused=True`` runs K5 (warp and photometric pass in
+    one kernel) instead of K1 and K3; ``letterbox`` takes precedence over
+    it, and it ignores ``blur_capacity`` and ``carry_u8``.
+    ``blur_capacity=K`` promises that exactly the last K samples blur and
+    splits the photometric pass into a "none" and an "all" call;
+    ``carry_u8`` rounds the warp's output to uint8 before the photometric
+    pass.
     """
-    if fused:
-        raise NotImplementedError(
-            "fused=True needs K5 warp_photo_images, which is not ported yet "
-            "(the next slice of the port)")
     src_hw = tuple(images.shape[1:3])
     dev = images.device
     wp = make_warp_params(params, src_hw, dst_hw, letterbox)
-    gains, blur = params["gains"], params["blur"]
-    if dev.type == "cuda" and wp.device.type == "cpu":
+    # the (B, NPARAMS_FULL) rows in the JAX package's column order
+    full = torch.cat([wp, params["gains"].to(wp.device, torch.float32),
+                      params["blur"].to(wp.device, torch.float32)[:, None]], 1)
+    if dev.type == "cuda" and full.device.type == "cpu":
         # one pinned, non-blocking upload: a pageable copy would make the
         # host wait for the card to drain before every step
-        packed = torch.cat([wp, gains.float(), blur.float()[:, None]], 1)
-        packed = packed.pin_memory().to(dev, non_blocking=True)
-        wp, gains, blur = packed[:, :8], packed[:, 8:11], packed[:, 11] > 0
+        full = full.pin_memory().to(dev, non_blocking=True)
     else:
-        wp, gains, blur = wp.to(dev), gains.to(dev), blur.to(dev)
-    x = images.permute(0, 3, 1, 2)  # K1 reads the NHWC batch in place
+        full = full.to(dev)
+    wp, gains = full[:, :NPARAMS], full[:, P_GH:P_GV + 1]
+    blur = full[:, P_BLUR] > 0
+    x = images.permute(0, 3, 1, 2)  # K1 and K5 read the NHWC batch in place
     s = dst_hw[0]
     lbl = warp_labels(labels, wp, out_size=s)
     if letterbox:
         out = warp_images(x, wp, out_size=s).to(torch.bfloat16)
         if normalized:  # x / 255 as XLA computes it: times the f32 reciprocal
             out = (out.float() * _const(1.0 / 255.0, wp)).to(torch.bfloat16)
+        return out.permute(0, 2, 3, 1), lbl
+    if fused:
+        out = warp_photo_images(x, full, out_size=s)
+        if not normalized:
+            out = out * 255.0
         return out.permute(0, 2, 3, 1), lbl
     warped = warp_images(x, wp, out_size=s,
                          out_dtype=torch.uint8 if carry_u8 else torch.bfloat16)

@@ -1,5 +1,6 @@
 """Segmentation trainer: model construction, optimizers, the train and eval
-steps and the host-fed epoch — port of ``cervical_tpu/train/seg_trainer.py``
+steps, the host-fed epoch and the two-phase ``fit`` loop with checkpoints,
+callbacks and a graceful stop — port of ``cervical_tpu/train/seg_trainer.py``
 (reference: ``Segmentation/deeplabv3+/train.py`` + ``utils/utils_fit.py``).
 
 One train step: uint8 batch -> augmentation on the card (the K1-K3 kernels
@@ -11,15 +12,17 @@ In the freeze phase the backbone runs without autograd and its optimizer
 does not step: its params and its Adam state stay bit-identical, while its
 BatchNorm running stats still update (train.py:447-452).
 
-Not ported yet: ``fit``/``_fit_loop`` with callbacks and checkpoints, the
-device-resident and scanned epochs, the einsum augmentation backend, and
-loading ``pretrained`` weights.
+Not ported yet: the device-resident and scanned epochs (``fit`` feeds a
+:class:`~cervical_tpu_torch.data.voc.BatchLoader`) and the einsum
+augmentation backend.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import signal
+import threading
 import time
 from typing import Dict, Optional
 
@@ -103,16 +106,28 @@ def make_optimizer(cfg: SegTrainConfig, params) -> torch.optim.Optimizer:
                            nesterov=True, weight_decay=cfg.weight_decay)
 
 
+def load_pretrained(cfg: SegTrainConfig, model: nn.Module, log=print):
+    """Load ``cfg.pretrained`` into ``model`` in place: a whole-model or a
+    backbone-only torch checkpoint (told apart by its keys), tensors of
+    another shape skipped (train.py:304-339)."""
+    from cervical_tpu_torch.train import torch_import as TI
+
+    sd = TI.load_state_dict(cfg.pretrained)
+    scope = "" if TI.is_full_deeplab_sd(sd) else "backbone"
+    loaded, skipped = TI.load_into(model, sd, scope)
+    log(f"pretrained {cfg.pretrained!r}: loaded {len(loaded)} arrays"
+        + (f", skipped {len(skipped)} shape mismatches" if skipped else ""))
+
+
 def create_state(cfg: SegTrainConfig, seed: Optional[int] = None,
                  device="cuda") -> TrainState:
-    """A fresh :class:`TrainState` on ``device``: seeded reference init
+    """A fresh :class:`TrainState` on ``device``: ``cfg.pretrained`` loaded
+    over torch's default init, else the seeded reference init
     (``weights_init="normal"``) or torch's defaults (``"none"``)."""
-    if cfg.pretrained:
-        raise NotImplementedError(
-            "loading pretrained weights is not ported yet (it comes with "
-            "the fit/checkpoint slice)")
     model = build_model(cfg, fused_middle=cfg.fused_middle_eval)
-    if cfg.weights_init == "normal":
+    if cfg.pretrained:
+        load_pretrained(cfg, model)
+    elif cfg.weights_init == "normal":
         seed = cfg.seed if seed is None else seed
         reference_weights_init(model, torch.Generator().manual_seed(seed))
     device = torch.device(device)
@@ -348,6 +363,117 @@ class SegTrainer:
             vn += 1
         return EpochResult(tl / max(n, 1), vl / max(vn, 1), tf / max(n, 1),
                            vf / max(vn, 1), time.time() - t0)
+
+    def fit(self, train_ds, val_ds, total_epochs: Optional[int] = None,
+            loader_factory=None, log=print) -> Dict:
+        """The two-phase training loop (train.py:526-581) from
+        ``cfg.init_epoch`` to ``total_epochs`` (default
+        ``cfg.unfreeze_epoch``).  ``train_ds``/``val_ds`` are
+        :class:`~cervical_tpu_torch.data.voc.VOCSegDataset`-like;
+        ``loader_factory(ds, batch_size, shuffle)`` defaults to a
+        ``BatchLoader`` that drops the ragged tail of a shuffled (train)
+        set.  Returns the history ``{"train_loss", "val_loss", "miou"}``
+        (+ ``"predictor_miou"`` with ``cfg.predictor_eval``).
+
+        SIGTERM and SIGINT (handlers installed only from the main thread,
+        restored on return) and :meth:`request_stop` ask for a graceful
+        stop: the epoch in flight finishes and is checkpointed as usual,
+        then the loop returns.  Resume with ``cfg.init_epoch`` and
+        :meth:`CheckpointManager.restore`."""
+        from cervical_tpu_torch.data.voc import BatchLoader
+        from cervical_tpu_torch.train.callbacks import (LossHistory,
+                                                        MiouHistory,
+                                                        PredictorMiouCallback)
+        from cervical_tpu_torch.train.checkpoints import CheckpointManager
+
+        cfg = self.cfg
+        total_epochs = total_epochs or cfg.unfreeze_epoch
+        if loader_factory is None:
+            def loader_factory(ds, bs, shuffle):
+                return BatchLoader(ds, bs, shuffle=shuffle, seed=cfg.seed,
+                                   drop_last=shuffle)
+
+        loss_hist = LossHistory(cfg.save_dir)
+        # the model-graph dump at callback init (utils/callbacks.py:29-34)
+        loss_hist.add_model_graph(self._graph_model(),
+                                  torch.zeros(1, 3, *cfg.data.input_shape))
+        miou_hist = MiouHistory(cfg.save_dir, cfg.eval_period)
+        pred_cb = (PredictorMiouCallback(cfg.save_dir, val_ds,
+                                         cfg.eval_period, device=self.device)
+                   if cfg.predictor_eval else None)
+        ckpt = CheckpointManager(cfg.save_dir, cfg.save_period)
+
+        self._stop_requested = False
+        prev_handlers = {}
+
+        def _request_stop(signum, frame):
+            self._stop_requested = True
+            log(f"signal {signum}: finishing the current epoch, "
+                "checkpointing, and stopping")
+
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev_handlers[sig] = signal.signal(sig, _request_stop)
+        history = {"train_loss": [], "val_loss": [], "miou": []}
+        try:
+            self._fit_loop(total_epochs, loader_factory, train_ds, val_ds,
+                           history, loss_hist, miou_hist, pred_cb, ckpt, log)
+        finally:
+            for sig, h in prev_handlers.items():
+                signal.signal(sig, h)
+        return history
+
+    def _graph_model(self) -> nn.Module:
+        """An eval-mode CPU copy of the model, unfused (the kernels launch
+        only on CUDA tensors), for the graph dump."""
+        model = build_model(self.cfg)
+        model.load_state_dict(self.state.model.state_dict())
+        return model.eval()
+
+    def _fit_loop(self, total_epochs, loader_factory, train_ds, val_ds,
+                  history, loss_hist, miou_hist, pred_cb, ckpt, log):
+        cfg = self.cfg
+        frozen = cfg.freeze_train
+        batch_size = cfg.freeze_batch_size if frozen else \
+            cfg.unfreeze_batch_size
+        schedule = self.lr_schedule(batch_size, total_epochs)
+        train_loader = loader_factory(train_ds, batch_size, True)
+        val_loader = loader_factory(val_ds, cfg.eval_batch_size, False)
+        for epoch in range(cfg.init_epoch, total_epochs):
+            if frozen and epoch >= cfg.freeze_epoch:
+                # unfreeze: batch size and schedule rebuilt (train.py:531-570)
+                frozen = False
+                batch_size = cfg.unfreeze_batch_size
+                schedule = self.lr_schedule(batch_size, total_epochs)
+                train_loader = loader_factory(train_ds, batch_size, True)
+            lr = schedule(epoch)
+            res = self.run_epoch(train_loader, val_loader, epoch, frozen, lr)
+            history["train_loss"].append(res.train_loss)
+            history["val_loss"].append(res.val_loss)
+            loss_hist.append_loss(epoch, res.train_loss, res.val_loss)
+            if miou_hist.should_eval(epoch):
+                miou = self.evaluate_miou(val_loader)["miou"]
+                miou_hist.append(epoch, miou)
+                history["miou"].append((epoch, miou))
+            if pred_cb is not None and pred_cb.should_eval(epoch):
+                history.setdefault("predictor_miou", []).append(
+                    (epoch, pred_cb.run(cfg, self.state, epoch, log=log)))
+            ckpt.on_epoch_end(epoch, self.state, res.train_loss, res.val_loss,
+                              total_epochs)
+            log(f"Epoch {epoch + 1}/{total_epochs} lr={lr:.2e} "
+                f"loss={res.train_loss:.4f} val_loss={res.val_loss:.4f} "
+                f"f={res.train_f_score:.3f}/{res.val_f_score:.3f} "
+                f"({res.seconds:.1f}s)")
+            if self._stop_requested:
+                log(f"stopped after epoch {epoch + 1} (preemption); "
+                    f"resume with init_epoch={epoch + 1} from "
+                    "last_epoch_weights")
+                break
+
+    def request_stop(self):
+        """Ask ``fit`` to stop gracefully at the next epoch boundary
+        (checkpointed as usual) — the programmatic preemption hook."""
+        self._stop_requested = True
 
     def evaluate_miou(self, loader, num_classes: Optional[int] = None) -> Dict:
         """Accumulate the confusion matrix over ``loader`` on the card and

@@ -21,11 +21,16 @@
    have launched.  The masks must agree with the unfused predictor on >= 99%
    of pixels.
 4. Holds the augmentation kernels K1 ``warp_images`` (bf16 and uint8 out),
-   K2 ``warp_labels`` and K3 ``photometric`` (select/all/none, bf16 and
-   uint8 in) against their plain versions at batch 8, 512², on parameter
-   rows sampled as the train step samples them (rotation on 2 images, blur
-   on 2): K2 exact, K1 and K3 within one bf16 step on at most 1e-4 of the
-   elements.  Times each beside its plain version and its bound.
+   K2 ``warp_labels``, K3 ``photometric`` (select/all/none, bf16 and
+   uint8 in) and K5 ``warp_photo_images`` against their plain versions at
+   batch 8, 512², on parameter rows sampled as the train step samples them
+   (rotation on 2 images, blur on 2): K2 exact, K1, K3 and K5 within one
+   bf16 step on at most 1e-4 of the elements.  K5 is also held against the
+   K1 -> K3 kernel chain (the count of differing elements printed), and
+   ``augment_batch_kernels(fused=True)``, K5's one caller, against
+   ``fused=False`` (labels exact), with its launch counts zeroed before and
+   read after.  Times each kernel beside its plain version and its bound,
+   and K5 beside K1 + K3.
 5. Drives the training path: ``SegTrainer`` at the default config (xception,
    os16, 512², 5 classes, bf16, Adam 1e-4, focal + dice, class weights
    (1,1,5,3,4)) with ``data.aug_backend="pallas"`` on 32 synthetic 512²
@@ -37,8 +42,20 @@
    identical, the eval confusion matrix must count every val pixel once.
    Then times the train step (ms/step, images/s, after warm-up) and reads
    the card's idle share over profiled steps.
-6. Prints one ``{"kernels": [...]}`` line, then as the last line
-   ``{"ok": true, "device": {...}}``.
+6. Drives the fit path at the same width on a synthetic VOC of 24 train and
+   8 val 512² images written to a temporary directory: ``SegTrainer.fit``
+   with one frozen epoch of 3, a checkpoint every epoch, the eval step's
+   and the predictor's mIoU at epoch 2 (K4 in the eval passes).  Counts are
+   zeroed before and read after: K1-K3 once per train step of each epoch,
+   K4 48 times per eval forward.  The three checkpoint kinds exist after
+   each epoch, the callbacks' files have their lines, every loss is finite,
+   and ``last_epoch_weights`` restores the model and both Adam states bit
+   for bit into a fresh state.  Then ``python -m
+   cervical_tpu_torch.train_seg`` on the same data, sent SIGTERM once
+   epoch 1 is logged, must finish epoch 2, checkpoint it and exit 0.
+   Prints seconds per epoch and the peak memory.
+7. Prints one ``{"kernels": [...]}`` line (six kernels), then as the last
+   line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, if any check fails, if there is no
 CUDA device, or if the ``cervical_tpu_torch`` package is not beside it.
@@ -58,7 +75,9 @@ PEAK_FP32 = 67e12         # fp32 FLOP/s outside the tensor cores
 TPU_K4 = "cervical_tpu/ops/pallas_xception.py:161"
 TPU_WARP = {"warp_images": "cervical_tpu/ops/pallas_warp.py:298",
             "warp_labels": "cervical_tpu/ops/pallas_warp.py:325",
-            "photometric": "cervical_tpu/ops/pallas_warp.py:554"}
+            "photometric": "cervical_tpu/ops/pallas_warp.py:554",
+            "warp_photo_images": "cervical_tpu/ops/pallas_warp.py:412"}
+TRAIN_KERNELS = ("warp_images", "warp_labels", "photometric")  # per step
 NO_LIBRARY = ("no single PyTorch call computes it: F.grid_sample is a direct "
               "bilinear warp, not the 3-shear with bf16 staging, and there is "
               "no fused blur + cv2-HSV op")
@@ -464,6 +483,8 @@ def warp_phase(torch, W, A, dev, g, b=8, s=512):
             warped, gains, flags), 5),
         "timed": f"({b},3,{s},{s}) bf16 -> bf16, select, {n_blur} blurred",
         "bounds": (2 * warped.numel() * 2 + gains.numel() * 4 + b, k3_ops)}
+    recs["warp_photo_images"] = k5_check(torch, W, A, x, labels, params, wp,
+                                         gains, flags, s, k1_ops + k3_ops)
     for name, r in recs.items():
         nbytes, ops = r.pop("bounds")
         r["bound_ms"], r["bound_by"] = bound_ms(nbytes, fp32_ops=ops)
@@ -473,6 +494,68 @@ def warp_phase(torch, W, A, dev, g, b=8, s=512):
               f"{r['max_abs_err']:.3g}, {r['mismatch_share']:.3g} of elements "
               f"differ; {r['timed']}")
     return recs
+
+
+def k5_check(torch, W, A, x, labels, params, wp, gains, flags, s, ops):
+    """K5 ``warp_photo_images`` on the train step's rows: against its plain
+    version and against the K1 -> K3 kernel chain (expected equal: the same
+    f32 operations with the same roundings), ``augment_batch_kernels``
+    with ``fused=True`` against ``fused=False`` (labels exact), then K5's
+    time beside K1 + K3's and the plain version's.  The fused path is
+    driven once with the counts zeroed before and read after."""
+    b = x.shape[0]
+    full = torch.cat([wp, gains.float(), flags.float()[:, None]], 1)
+    got = W.warp_photo_images(x, full, s)
+    torch.cuda.synchronize()
+    ref = W.warp_photo_images_reference(x, full, s)
+    err, share, ok = one_step_ok(torch, got, ref)
+    check(ok, f"warp_photo_images disagrees with its plain version: max "
+          f"{err}, {share:.3g} of elements differ")
+
+    def chain():
+        return W.photometric(W.warp_images(x, wp, s), gains, flags)
+    want = chain()
+    d = got.float() - want.float()
+    n_diff = int((d != 0).sum())
+    c_err, c_share, c_ok = one_step_ok(torch, got, want)
+    print(f"warp_photo_images vs the K1 -> K3 kernels: {n_diff} of "
+          f"{got.numel()} elements differ, largest difference "
+          f"{float(d.max()):.3g} / {float(d.min()):.3g}")
+    check(c_ok, f"warp_photo_images disagrees with K1 -> K3: max {c_err}, "
+          f"{c_share:.3g} of elements differ")
+
+    images = x.permute(0, 2, 3, 1)  # the NHWC batch
+    W.reset_launches()
+    fi, fl = W.augment_batch_kernels(images, labels, params, (s, s),
+                                     fused=True)
+    torch.cuda.synchronize()
+    launches = dict(W.LAUNCHES)
+    check(launches == {"warp_images": 0, "warp_labels": 1, "photometric": 0,
+                       "warp_photo_images": 1},
+          f"augment_batch_kernels(fused=True) launched {launches}")
+    ui, ul = W.augment_batch_kernels(images, labels, params, (s, s))
+    check(torch.equal(fl, ul), "fused and two-kernel labels differ")
+    p_err, p_share, p_ok = one_step_ok(torch, fi, ui)
+    check(p_ok, f"augment_batch_kernels fused=True vs False: max {p_err}, "
+          f"{p_share:.3g} of elements differ")
+    print(f"augment_batch_kernels fused=True vs False: labels equal, images "
+          f"max {p_err:.3g}, {p_share:.3g} of elements differ")
+
+    n_rot = int((params["angle"] != 0).sum())
+    n_blur = int(params["blur"].sum())
+    ms = cuda_ms(torch, lambda: W.warp_photo_images(x, full, s), 50)
+    pair_ms = cuda_ms(torch, chain, 50)
+    print(f"warp_photo_images {ms:.4f} ms vs K1 + K3 {pair_ms:.4f} ms on the "
+          "same rows (one call)")
+    return {"max_abs_err": err, "mismatch_share": share, "ms": ms,
+            "k1_k3_ms": pair_ms, "chain_differing": n_diff,
+            "plain_ms": cuda_ms(torch, lambda: W.warp_photo_images_reference(
+                x, full, s), 5),
+            "launches": launches["warp_photo_images"],
+            "timed": f"({b},3,{s},{s}) uint8 NHWC view -> bf16, {n_rot} "
+                     f"rotated, {n_blur} blurred",
+            # K1's uint8 read and K3's bf16 write; the operations of both
+            "bounds": (x.numel() + got.numel() * 2 + full.numel() * 4, ops)}
 
 
 def device_busy_ms(prof, DeviceType):
@@ -546,7 +629,7 @@ def train_phase(torch, W, g, input_shape=(512, 512), n_train=32, n_val=12,
               f"eval of {n_val} images in {dt:.3f} s; loss "
               f"{r.train_loss:.5f} val {r.val_loss:.5f} f_score "
               f"{r.train_f_score:.4f}/{r.val_f_score:.4f}; launches {launches}")
-        for name in W.LAUNCHES:
+        for name in TRAIN_KERNELS:
             check(launches[name] == steps, f"{name} launched "
                   f"{launches[name]} times in {steps} train steps")
         check(all(math.isfinite(v) for v in (r.train_loss, r.val_loss,
@@ -603,8 +686,194 @@ def train_phase(torch, W, g, input_shape=(512, 512), n_train=32, n_val=12,
           + ("not measured (no device events)" if idle is None
              else f"{idle:.4f}"))
     print("train " + json.dumps(res))
-    return {name: sum(e["launches"][name] for e in epochs)
-            for name in W.LAUNCHES}
+
+
+def fit_config(root, save_dir, input_shape, **kw):
+    """The fit phase's config: the defaults (xception, os16, 5 classes,
+    bf16, Adam) with the kernel augmentation, K4 in the eval passes, one
+    frozen epoch of 3, a checkpoint every epoch, the mIoU passes at epoch
+    2; ``kw`` overrides more.  Returned with the same settings as CLI
+    overrides."""
+    from cervical_tpu_torch.config import SegTrainConfig, load_config
+    over = {"data": {"dataset_path": root, "input_shape": list(input_shape),
+                     "aug_backend": "pallas"},
+            "fused_middle_eval": True, "freeze_train": True,
+            "freeze_epoch": 1, "unfreeze_epoch": 3, "save_period": 1,
+            "eval_period": 2, "predictor_eval": True, "save_dir": save_dir,
+            **kw}
+    argv = []
+    for k, v in over.items():
+        for kk, vv in (v.items() if isinstance(v, dict) else [(None, v)]):
+            argv += [f"--{k}.{kk}" if kk else f"--{k}", json.dumps(vv)
+                     if not isinstance(vv, str) else vv]
+    return load_config(SegTrainConfig, None, over), argv
+
+
+def fit_phase(torch, W, MF, input_shape=(512, 512), n_train=24, n_val=8,
+              device="cuda"):
+    """``SegTrainer.fit`` in this process, then the ``train_seg`` CLI in a
+    subprocess stopped by SIGTERM, on a synthetic VOC written to a
+    temporary directory.  Returns the fit run's launch counts."""
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from cervical_tpu_torch.data.voc import (VOCSegDataset, make_synthetic_voc,
+                                             read_split)
+    from cervical_tpu_torch.train.checkpoints import CheckpointManager
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer, create_state
+
+    h, w = input_shape
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    proc = None
+    try:
+        n = n_train + n_val
+        root = make_synthetic_voc(os.path.join(tmp, "voc"), num_images=n,
+                                  size=h, splits=(n_train / n, n_val / n, 0))
+        cfg, _ = fit_config(root, os.path.join(tmp, "logs"), input_shape)
+        train = VOCSegDataset(root, read_split(root, "train"), (h, w))
+        val = VOCSegDataset(root, read_split(root, "val"), (h, w))
+        check((len(train), len(val)) == (n_train, n_val), "synthetic VOC split")
+        trainer = SegTrainer(cfg, device=device)
+        ckpt = CheckpointManager(cfg.save_dir)
+        steps = [n_train // cfg.freeze_batch_size] + \
+            [n_train // cfg.unfreeze_batch_size] * (cfg.unfreeze_epoch - 1)
+        epochs, marks = [], [time.perf_counter()]
+        before = {}
+
+        def log(msg):
+            print(f"  fit: {msg}")
+            if not msg.startswith("Epoch "):
+                return
+            e = len(epochs)
+            now = {**W.LAUNCHES, **MF.LAUNCHES}
+            marks.append(time.perf_counter())
+            epochs.append({"epoch": e + 1, "seconds": marks[-1] - marks[-2],
+                           "launches": {k: v - before.get(k, 0)
+                                        for k, v in now.items()}})
+            before.update(now)
+            names = os.listdir(cfg.save_dir)
+            check(any(f.startswith(f"ep{e + 1:03d}-") for f in names) and
+                  {"best_epoch_weights", "last_epoch_weights"} <= set(names),
+                  f"checkpoints after epoch {e + 1}: {sorted(names)}")
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        W.reset_launches()
+        MF.reset_launches()
+        t0 = time.perf_counter()
+        hist = trainer.fit(train, val, log=log)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = {**W.LAUNCHES, **MF.LAUNCHES}
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(len(epochs) == cfg.unfreeze_epoch, f"{len(epochs)} epochs ran")
+        for e, n_steps in zip(epochs, steps):
+            for name in TRAIN_KERNELS:
+                check(e["launches"][name] == n_steps,
+                      f"{name} launched {e['launches'][name]} times in "
+                      f"epoch {e['epoch']}'s {n_steps} train steps")
+        # K4 on every eval forward: one val batch per epoch, the mIoU pass
+        # and the predictor pass at epoch 2
+        forwards = cfg.unfreeze_epoch + 2
+        for name in MF.LAUNCHES:
+            check(launches[name] == 48 * forwards, f"{name} launched "
+                  f"{launches[name]} times, expected {48 * forwards}")
+        check(launches["warp_photo_images"] == 0, "fit launched K5")
+        losses = hist["train_loss"] + hist["val_loss"]
+        check(len(hist["train_loss"]) == cfg.unfreeze_epoch and
+              all(math.isfinite(v) for v in losses), f"losses {losses}")
+        check(sorted(hist) == ["miou", "predictor_miou", "train_loss",
+                               "val_loss"], f"history keys {sorted(hist)}")
+
+        def lines(name):
+            with open(os.path.join(cfg.save_dir, name)) as f:
+                return len(f.read().splitlines())
+        for name, want in (("epoch_loss.txt", 3), ("epoch_val_loss.txt", 3),
+                           ("epoch_miou.txt", 1),
+                           ("epoch_miou_predictor.txt", 1)):
+            check(lines(name) == want, f"{name}: {lines(name)} lines")
+        check(os.path.getsize(os.path.join(cfg.save_dir,
+                                           "model_graph.txt")) > 1000,
+              "model_graph.txt")
+
+        fresh = create_state(cfg, seed=cfg.seed + 100, device=device)
+        fresh, extra = ckpt.restore("last_epoch_weights", fresh)
+        mine = trainer.state
+        theirs = fresh.model.state_dict()
+        same_model = all(torch.equal(v, theirs[k]) for k, v
+                         in mine.model.state_dict().items())
+
+        def adam_equal(a, b):
+            sa, sb = a.state_dict()["state"], b.state_dict()["state"]
+            return sa.keys() == sb.keys() and all(
+                torch.equal(torch.as_tensor(sa[i][k]), torch.as_tensor(
+                    sb[i][k])) for i in sa for k in sa[i])
+        same_adam = all(adam_equal(mine.opt_state[g], fresh.opt_state[g])
+                        for g in ("backbone", "head"))
+        check(same_model and same_adam and fresh.step == mine.step and
+              extra["epoch"] == cfg.unfreeze_epoch - 1,
+              f"restore: model {same_model}, Adam {same_adam}, step "
+              f"{fresh.step}/{mine.step}, extra {extra}")
+        del fresh
+        res = {"seconds": fit_s, "peak_mem_gib": peak,
+               "epochs": [{"epoch": e["epoch"], "seconds": e["seconds"],
+                           "steps": s} for e, s in zip(epochs, steps)],
+               "history": hist, "launches": launches}
+        print(f"fit: {cfg.unfreeze_epoch} epochs in {fit_s:.2f} s ("
+              + ", ".join(f"{e['seconds']:.2f}" for e in epochs)
+              + f" s each), peak memory {peak:.2f} GiB; restored "
+              "last_epoch_weights bit for bit")
+        shutil.rmtree(cfg.save_dir)
+
+        # the CLI, stopped by SIGTERM while epoch 2 runs: it finishes, is
+        # checkpointed, and the process exits 0 (no mIoU passes: the run
+        # above covered them).  The signal goes out 1 s after epoch 1's
+        # line: the loop tests the stop flag just after printing that line,
+        # so a signal sent at once can land before the test (the child
+        # descheduled as its pipe write wakes this reader) and stop after
+        # epoch 1, while epoch 2 takes seconds at 512².
+        _, argv = fit_config(root, cfg.save_dir, input_shape, eval_period=10,
+                             predictor_eval=False)
+        cmd = [sys.executable, "-u", "-m", "cervical_tpu_torch.train_seg",
+               "--device", device] + argv
+        env = dict(os.environ, PYTHONPATH=HERE)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=HERE, env=env, text=True,
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT)
+        watchdog = threading.Timer(600, proc.kill)
+        watchdog.start()
+        out, sent = [], None
+        for line in proc.stdout:
+            out.append(line)
+            if sent is None and line.startswith("Epoch 1/3"):
+                time.sleep(1.0)
+                proc.send_signal(signal.SIGTERM)
+                sent = time.perf_counter() - t0
+        rc = proc.wait()
+        watchdog.cancel()
+        text = "".join(out)
+        cli_s = time.perf_counter() - t0
+        check(rc == 0 and sent is not None and "stopped after epoch 2" in text
+              and "Epoch 3/3" not in text,
+              f"CLI exit {rc}, SIGTERM at {sent}; output tail:\n{text[-3000:]}")
+        cli_extra = ckpt.restore("last_epoch_weights")["extra"]
+        check(cli_extra["epoch"] == 1 and lines("epoch_loss.txt") == 2,
+              f"CLI checkpoint {cli_extra}, "
+              f"{lines('epoch_loss.txt')} loss lines")
+        print(f"train_seg CLI: SIGTERM {sent:.1f} s after start, stopped after "
+              f"epoch 2, exit 0, {cli_s:.1f} s in all; last_epoch_weights "
+              f"holds epoch index {cli_extra['epoch']}")
+        res["cli_seconds"] = cli_s
+        res["cli_sigterm_at_s"] = sent
+        print("fit " + json.dumps(res))
+        return launches
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main():
@@ -641,11 +910,25 @@ def main():
                 print(f"  {name}: {line.strip()}")
 
     dev = torch.device("cuda")
-    records, k4 = kernel_phase(torch, F, MF, dev,
-                               torch.Generator().manual_seed(0))
-    launches = predictor_phase(torch, MF, torch.Generator().manual_seed(1))
-    warp = warp_phase(torch, W, A, dev, torch.Generator().manual_seed(2))
-    train_launches = train_phase(torch, W, torch.Generator().manual_seed(3))
+    seconds = {"build": build_s}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t
+        return out
+    records, k4 = timed("kernels", kernel_phase, torch, F, MF, dev,
+                        torch.Generator().manual_seed(0))
+    launches = timed("predictor", predictor_phase, torch, MF,
+                     torch.Generator().manual_seed(1))
+    warp = timed("warp", warp_phase, torch, W, A, dev,
+                 torch.Generator().manual_seed(2))
+    timed("train", train_phase, torch, W, torch.Generator().manual_seed(3))
+    # the slice's main path: K1-K3 as launched by fit; K5 by
+    # augment_batch_kernels(fused=True), its one caller (warp phase)
+    path_launches = timed("fit", fit_phase, torch, W, MF)
+    path_launches["warp_photo_images"] = warp["warp_photo_images"]["launches"]
+    print("seconds per phase " + json.dumps(seconds))
 
     kernels = []
     for r in records:
@@ -662,11 +945,14 @@ def main():
         kernels.append({
             "name": name, "route": "cuda",
             "source": "cervical_tpu_torch/csrc/warp.cu",
-            "replaces": TPU_WARP[name], "launches": train_launches[name],
+            "replaces": TPU_WARP[name], "launches": path_launches[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
-            "library": NO_LIBRARY, "timed_shape": r["timed"]})
+            "library": NO_LIBRARY, "timed_shape": r["timed"],
+            **({"k1_k3_ms": r["k1_k3_ms"],
+                "chain_differing": r["chain_differing"]}
+               if "k1_k3_ms" in r else {})})
     print(json.dumps({"k4_middle_flow_eval": k4}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

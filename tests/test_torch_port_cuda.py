@@ -174,7 +174,7 @@ def test_warp_kernels_match_plain(cuda_device, src_hw, s):
     got = W.warp_labels(ld, wpd, s)
     assert torch.equal(got, W.warp_labels_reference(ld, wpd, s))
     assert W.LAUNCHES == {"warp_images": 2, "warp_labels": 1,
-                          "photometric": 0}
+                          "photometric": 0, "warp_photo_images": 0}
 
 
 @pytest.mark.parametrize("mode", ["select", "all", "none"])
@@ -199,18 +199,54 @@ def test_photometric_kernel_matches_plain(cuda_device, mode, in_dtype):
             float(err.max())
 
 
+@pytest.mark.parametrize("src_hw,s", [((64, 64), 64), ((40, 64), 64),
+                                      ((67, 70), 67), ((512, 512), 512)])
+def test_warp_photo_kernel_matches_plain_and_chain(cuda_device, src_hw, s):
+    """K5 against its plain version and against the K1 -> K3 kernel chain
+    on the same rows: images rotated and blurred, rotated only, blurred
+    only, neither; a ragged output size.  The same f32 ops with the same
+    roundings as the chain, so both are expected exact; held to one bf16
+    step."""
+    from cervical_tpu_torch.ops import warp as W
+    p, wp, imgs, _ = _warp_case(s + 1, 8, src_hw, s,
+                                [3.0, -3.0, 10.0, -10.0, 0, 0, 0, 0])
+    flags = torch.tensor([1, 0, 1, 0, 1, 0, 1, 0], dtype=torch.bool)
+    full = torch.cat([wp, p["gains"].float(), flags.float()[:, None]],
+                     1).to(cuda_device)
+    x = imgs.to(cuda_device).permute(0, 3, 1, 2)
+    W.reset_launches()
+    for out_dtype in (torch.bfloat16, torch.float32):
+        got = W.warp_photo_images(x, full, s, out_dtype)
+        ref = W.warp_photo_images_reference(x, full, s, out_dtype)
+        chain = W.photometric(W.warp_images(x, full[:, :8], s),
+                              full[:, 8:11], flags.to(cuda_device), out_dtype)
+        torch.cuda.synchronize()
+        for want in (ref, chain):
+            err = (got.float() - want.float()).abs()
+            assert bool((err <= 2.0 ** -8 * want.float().abs() + 1e-7)
+                        .all()), float(err.max())
+    assert W.LAUNCHES == {"warp_images": 2, "warp_labels": 0,
+                          "photometric": 2, "warp_photo_images": 2}
+
+
 def test_augment_batch_kernels_on_card(cuda_device):
-    """The chained pipeline on the card against the same calls on the CPU
-    (plain versions): labels equal, images within one bf16 step."""
+    """The chained pipeline (two-kernel and fused) on the card against the
+    same calls on the CPU (plain versions): labels equal, images within one
+    bf16 step; fused=True launches K5 and neither K1 nor K3."""
     from cervical_tpu_torch.ops import warp as W
     p, _, imgs, lbls = _warp_case(3, 8, (64, 64), 64,
                                   [5.0, -7.0, 0, 0, 0, 0, 0, 0])
-    for carry_u8 in (False, True):
+    for kw in ({"carry_u8": False}, {"carry_u8": True}, {"fused": True},
+               {"fused": True, "normalized": False}):
+        W.reset_launches()
         gi, gl = W.augment_batch_kernels(imgs.to(cuda_device),
                                          lbls.to(cuda_device), p, (64, 64),
-                                         carry_u8=carry_u8)
-        ri, rl = W.augment_batch_kernels(imgs, lbls, p, (64, 64),
-                                         carry_u8=carry_u8)
+                                         **kw)
+        fused = kw.get("fused", False)
+        assert W.LAUNCHES == {"warp_images": int(not fused), "warp_labels": 1,
+                              "photometric": int(not fused),
+                              "warp_photo_images": int(fused)}
+        ri, rl = W.augment_batch_kernels(imgs, lbls, p, (64, 64), **kw)
         assert torch.equal(gl.cpu(), rl)
         err = (gi.float().cpu() - ri.float()).abs()
         assert bool((err <= 2.0 ** -8 * ri.float().abs() + 1e-7).all())
@@ -238,7 +274,7 @@ def test_trainer_epoch_on_card_matches_cpu_losses(cuda_device):
     W.reset_launches()
     res = card.run_epoch(BatchLoader(ds, 8, seed=1), val, 0, False, 1e-4)
     assert W.LAUNCHES == {"warp_images": 2, "warp_labels": 2,
-                          "photometric": 2}
+                          "photometric": 2, "warp_photo_images": 0}
     assert np.isfinite(res.train_loss)
     cpu, gpu = SegTrainer(cfg, device="cpu"), SegTrainer(cfg)
     for m in (*cpu.state.model.modules(), *gpu.state.model.modules()):

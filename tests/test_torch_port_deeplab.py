@@ -15,7 +15,8 @@ from cervical_tpu.ops.depthwise import depthwise_conv3x3_reference
 from cervical_tpu_torch.models.deeplab import DeepLab
 from cervical_tpu_torch.ops.depthwise import depthwise_conv3x3
 
-from torch_port_helpers import random_state, scaled_atol, to_flax
+from torch_port_helpers import (random_state, scaled_atol, to_flax,
+                                two_torch_threads)  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -58,3 +58,23 @@ def test_preprocess_matches_jax():
     np.testing.assert_array_equal(
         T.preprocess_input(torch.from_numpy(x)).numpy(),
         np.asarray(J.preprocess_input(jnp.asarray(x))))
+
+
+def test_resize_cache_stays_real_after_torch_export():
+    """``torch.export`` traces through the cached interpolation matrices
+    (``fit`` exports the model for its graph dump); a later real resize of
+    the same shape must compute with a real matrix, not the trace's fake
+    one, and still match JAX."""
+    class Resize(torch.nn.Module):
+        def forward(self, x):
+            return T.resize_bilinear(x, (9, 7))
+
+    x = np.random.default_rng(3).uniform(0, 255, (1, 5, 6, 2)).astype(np.float32)
+    T._resident_interp.cache_clear()
+    torch.export.export(Resize(), (torch.from_numpy(x),))
+    got = T.resize_bilinear(torch.from_numpy(x), (9, 7))
+    assert type(got.sum().item()) is float
+    np.testing.assert_allclose(got.numpy(),
+                               np.asarray(J.resize_bilinear(jnp.asarray(x),
+                                                            (9, 7))),
+                               atol=ATOL)

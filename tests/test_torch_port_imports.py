@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``cervical_tpu_torch``
 loads no JAX, flax, optax, orbax or ``cervical_tpu`` module; its entry
-points (predictor, CLI, trainer) default to CUDA; ``chip_smoke.py`` refuses
+points (predictor, CLIs, trainer) default to CUDA; ``chip_smoke.py`` refuses
 to run without a card or without the package."""
 
 import inspect
@@ -37,7 +37,7 @@ def test_port_imports_no_jax_or_reference_package():
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 24, out.stdout
+    assert n_modules >= 33, out.stdout
 
 
 def test_port_sources_name_no_reference_package():
@@ -65,14 +65,17 @@ def test_entry_points_default_to_cuda():
 
 
 def test_training_slice_modules_import_alone():
-    """Every module of the training slice is importable without JAX, and
-    the kernel module builds nothing at import."""
+    """Every module of the training and fit slices is importable without
+    JAX, and the kernel module builds nothing at import."""
     code = (
         "import sys\n"
         "import cervical_tpu_torch.ops.warp as W, cervical_tpu_torch.ops.warp_xla,"
         " cervical_tpu_torch.ops.augment, cervical_tpu_torch.losses,"
         " cervical_tpu_torch.data.voc, cervical_tpu_torch.data.pipeline,"
-        " cervical_tpu_torch.train.seg_trainer, cervical_tpu_torch.train.schedules\n"
+        " cervical_tpu_torch.train.seg_trainer, cervical_tpu_torch.train.schedules,"
+        " cervical_tpu_torch.train.checkpoints, cervical_tpu_torch.train.callbacks,"
+        " cervical_tpu_torch.train.torch_import, cervical_tpu_torch.train_seg,"
+        " cervical_tpu_torch.utils.seeding, cervical_tpu_torch.utils.logging\n"
         "assert W._lib_handle is None\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "sys.exit(1 if bad else 0)\n")

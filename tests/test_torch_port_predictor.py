@@ -16,7 +16,8 @@ from cervical_tpu_torch.config import SegDataConfig, SegTrainConfig
 from cervical_tpu_torch.inference.predictor import SegPredictor
 from cervical_tpu_torch.models.deeplab import DeepLab
 
-from torch_port_helpers import random_state, to_flax
+from torch_port_helpers import (random_state, to_flax,
+                                two_torch_threads)  # noqa: F401
 
 HW = (64, 64)
 

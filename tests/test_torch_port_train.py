@@ -20,7 +20,8 @@ from cervical_tpu_torch.metrics import confusion_matrix, fast_hist
 from cervical_tpu_torch.ops import image as PI
 from cervical_tpu_torch.train import schedules as PS
 
-from torch_port_helpers import random_state, to_flax
+from torch_port_helpers import (random_state, to_flax,
+                                two_torch_threads)  # noqa: F401
 
 CLS_W = [1.0, 1.0, 5.0, 3.0, 4.0]
 

@@ -34,7 +34,8 @@ from cervical_tpu_torch.train import seg_trainer as PT
 from cervical_tpu_torch.train.flax_import import (deeplab_from_flax,
                                                   load_adam_state)
 
-from torch_port_helpers import random_state, to_flax
+from torch_port_helpers import (random_state, to_flax,
+                                two_torch_threads)  # noqa: F401
 
 HW, B, LR = (64, 64), 8, 1e-4
 

@@ -1,7 +1,8 @@
 """The augmentation slice against the JAX package at 64², batch 4: the
-plain versions of K1 ``warp_images``, K2 ``warp_labels`` and K3
-``photometric`` against the Pallas kernels in interpret mode on the same
-(B, 8) parameter rows; the chained ``augment_batch_kernels`` against
+plain versions of K1 ``warp_images``, K2 ``warp_labels``, K3
+``photometric`` and K5 ``warp_photo_images`` against the Pallas kernels in
+interpret mode on the same parameter rows; the chained
+``augment_batch_kernels`` (two-kernel and fused) against
 ``augment_batch_pallas``; ``make_warp_params``; the gather oracle
 ``ops/augment``; the sampler's distributions; the eval letterbox of
 ``ops/warp_xla``.
@@ -114,12 +115,16 @@ def test_photometric_matches_pallas(mode, in_dtype):
 
 
 @pytest.mark.parametrize("kw", [{}, {"normalized": False}, {"carry_u8": True},
-                                {"blur_capacity": 2}, {"letterbox": True}],
+                                {"blur_capacity": 2}, {"letterbox": True},
+                                {"fused": True},
+                                {"fused": True, "normalized": False}],
                          ids=["default", "unnormalized", "carry_u8",
-                              "blur_capacity", "letterbox"])
+                              "blur_capacity", "letterbox", "fused",
+                              "fused_unnormalized"])
 def test_augment_batch_kernels_matches_pallas(kw):
     """End to end, each side computing its own warp rows from one params
-    dict: labels equal, images within one bf16 step."""
+    dict: labels equal, images within one bf16 step.  ``fused`` runs K5
+    on both sides."""
     images, labels = _data(23)
     jp = dict(JA.sample_augment_params(jax.random.PRNGKey(29), B,
                                        rotate_prefix=2, blur_suffix=2))
@@ -195,13 +200,32 @@ def test_plain_versions_follow_xla_rounding(monkeypatch):
     assert counts["two_roundings"]["K2"][0] > 0, counts
 
 
-def test_fused_kernel_is_not_ported_yet():
-    images, labels = _data(1)
-    p = A.sample_augment_params(torch.Generator().manual_seed(0), B)
-    with pytest.raises(NotImplementedError, match="K5"):
-        W.augment_batch_kernels(torch.from_numpy(images),
-                                torch.from_numpy(labels), p, (S, S),
-                                fused=True)
+def test_warp_photo_images_matches_pallas():
+    """K5's plain version against ``warp_photo_images`` in interpret mode:
+    4 seeds, 64², every image rotated, half of them blurred, parameters
+    sampled by JAX.  Measured exactly equal (0 of 196,608 elements differ;
+    ``pytest -s`` prints the count); held to one bf16 step on at most 1e-4
+    of the elements, as K1 and K3 are."""
+    got, want = [], []
+    for seed in range(4):
+        images, _ = _data(seed)
+        p = JA.sample_augment_params(jax.random.PRNGKey(seed), B,
+                                     rotate_prefix=B, blur_suffix=B // 2)
+        wp = np.array(PW.make_warp_params(p, (S, S), (S, S)))
+        full = np.concatenate([wp, np.array(p["gains"], np.float32),
+                               np.array(p["blur"], np.float32)[:, None]], 1)
+        planar = np.ascontiguousarray(images.transpose(0, 3, 1, 2))
+        want.append(np.asarray(PW.warp_photo_images(
+            jnp.asarray(planar), jnp.asarray(full), out_size=S,
+            interpret=True), np.float32))
+        out = W.warp_photo_images(torch.from_numpy(images).permute(0, 3, 1, 2),
+                                  torch.from_numpy(full), S)
+        assert out.dtype == torch.bfloat16 and tuple(out.shape) == (B, 3, S, S)
+        got.append(out.float().numpy())
+    got, want = np.concatenate(got), np.concatenate(want)
+    print(f"\nK5 plain version vs the Pallas kernel: {int((got != want).sum())}"
+          f" of {want.size} elements differ")
+    _one_step_ok(got, want)
 
 
 @pytest.mark.parametrize("letterbox", [False, True])

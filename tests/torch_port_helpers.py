@@ -3,6 +3,7 @@ numpy for the port's DeepLab, and their flax counterparts through the JAX
 package's own importer."""
 
 import numpy as np
+import pytest
 import torch
 
 
@@ -45,6 +46,41 @@ def to_flax(state):
     params, stats, missing = TI.convert_deeplab(sd, "xception", strict=True)
     assert not missing
     return params, stats
+
+
+@pytest.fixture(autouse=True, scope="module")
+def two_torch_threads():
+    """Caps torch's intra-op threads at 2 for a test module (autouse where
+    imported): the Tier-1 run shares 8 cores among 6 workers, and a
+    full-width model trained by 8 threads in each worker spends its time
+    spinning, not computing.  Restored after the module."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+
+def fit_overrides(root, save_dir, size, **kw):
+    """Config overrides of the fit tests: a synthetic VOC at ``root``,
+    ``size``² input, the kernel augmentation, float32, batch 8."""
+    over = {"data": {"input_shape": [size, size], "aug_backend": "pallas",
+                     "dataset_path": root},
+            "dtype": "float32", "save_dir": save_dir,
+            "freeze_batch_size": 8, "unfreeze_batch_size": 8,
+            "eval_batch_size": 8}
+    over.update(kw)
+    return over
+
+
+def tiny_jax_state():
+    """A stand-in JAX ``TrainState`` of a few numbers, for exercising the
+    JAX package's checkpoint policy and fit bookkeeping without building
+    its model."""
+    import jax.numpy as jnp
+    from cervical_tpu.train.seg_trainer import TrainState
+    one = jnp.ones(2)
+    return TrainState(step=jnp.zeros((), jnp.int32), params={"w": one},
+                      batch_stats={"m": one}, opt_state={"mu": one})
 
 
 def scaled_atol(ref, floor=5e-4, rel=2e-4):
