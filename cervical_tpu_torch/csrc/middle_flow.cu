@@ -9,42 +9,92 @@
 // works on (8, 32, 32, 728): 48 pointwise products of M=8192, K=N=728, i.e.
 // 417 GFLOP of bf16 tensor-core work against ~76 MB that must move (block
 // input and output, 51 MB of folded weights).  The whole function is bound
-// by operations.
+// by operations; one separable conv alone (f32 z in, f32 z out, 23.9 MB
+// each way) is bound by its bytes.
 //
 // What the design does about it.  The TPU kernel keeps one image's
 // (32, 32, 728) activation in VMEM across all 16 blocks on a sequential
 // (batch, block) grid.  On Hopper that activation is 1.49 MB in bf16 against
 // 227 KB of shared memory per block, and CUDA blocks run in no order, so the
-// block axis becomes a host loop and each separable conv is two launches:
-//   * mf_dw_stencil: ReLU + 9 zero-padded taps in f32 + BN1 affine, writing
-//     zb in bf16 as [M, C] rows (memory-bound; eight channels per thread,
-//     16-byte loads and stores);
-//   * mf_pw_gemm: zb @ wpw on the tensor cores (WMMA bf16, f32 accumulate),
-//     128x128x32 tiles, cp.async double buffering.  The epilogue adds the
-//     BN2 shift and, at a block's third conv, relu(block input) recomputed in
-//     f32, then rounds to bf16.
-// Between the three convs of a block z stays f32 (the GEMM writes f32); only
-// zb and the block output are rounded to bf16, as in the TPU kernel.  The
-// activation crosses device memory between launches; at batch 8 it mostly
-// stays in the 50 MB L2.  C = 728 is not a multiple of the 16-wide MMA
-// tiles: cp.async zero-fills the ragged K and N chunks (C must be a multiple
-// of 8, so a 16-byte chunk is either wholly inside or wholly outside), and
-// the epilogue masks rows and columns.  Every pointer is 16-byte aligned
-// (checked by the wrappers).  Layout is NHWC ([M, C] row-major);
-// the model runs channels_last so blocks 4-19 see it without a copy.
+// block axis is a host loop.  Each separable conv is two launches (a kernel
+// that computed the stencil into the GEMM's shared-memory A panel measured
+// slower on the H100; PERF.md):
+//   * mf_dw_stencil: ReLU, the 9 zero-padded taps at dilation d and the BN1
+//     affine in f32, with the same operations in the same order and no FMA
+//     as the plain version (bit-identical zb, in bf16).  The stencil reads
+//     each element of z 9 times; read through L2 from scattered threads that
+//     costs ~3x the bytes' time.  Here a thread owns 8 channels of one
+//     column w and walks `rows` output rows h = r, r + d, ... (one residue r
+//     of h mod d), so the input rows it needs slide by one row per step: it
+//     loads each input row once (3 pixels: w - d, w, w + d) and keeps three
+//     running sums in registers, for the outputs that row closes (dy = +1),
+//     continues (dy = 0) and opens (dy = -1).  Each output's 9 terms are
+//     still added in the plain version's order.  Blocks of 8 x 32 threads
+//     take 64 channels of 32 neighbouring columns, so the w +- d loads of
+//     one thread are its neighbours' w loads, served by L1.  Device memory
+//     sees z about (rows + 2) / rows times.
+//   * mf_pw_gemm: zb @ W, a warp-specialised wgmma GEMM.  One producer
+//     thread streams A's 256 x 64 and W^T's 184 x 64 boxes of each k-tile by
+//     TMA (cp.async.bulk.tensor.2d, 128-byte swizzle) into one of 4 stages
+//     guarded by full/empty mbarriers; two consumer warpgroups each multiply
+//     their 128 rows (two m64 panels) with the same W^T box
+//     (wgmma.mma_async m64n184k16, f32 += bf16 x bf16), with one commit
+//     group in flight while the previous stage is released.  The product
+//     is bound by what each SM pulls from L2, (rows + columns) x K per tile
+//     for rows x columns outputs: 256 x 184 tiles read 30% less per output
+//     than 128 x 184, and at os16 their 128 tiles are one wave on 132 SMs.
+//     W is kept K-major as W^T (N, K), a copy made once by the fold, so
+//     both operands are K-major.  N = 728 is 4 x 184 - 8.  setmaxnreg
+//     moves registers from the producer warpgroup (40) to the consumers
+//     (232, of which the accumulators take 184); that needs
+//     ptxas to give the kernel 168 registers per thread, which the host
+//     checks before the first launch (else setmaxnreg.inc would wait
+//     forever).  The epilogue works from the accumulator registers: + BN2
+//     shift and, at a block's third conv (FINAL), + relu(block input) and a
+//     bf16 rounding; 8-byte (f32 pairs) or 4-byte (bf16 pairs) stores, each
+//     quad of lanes filling one 32-byte sector.
+// Ragged shapes: K and N = 728 are 11 x 64 + 24.  TMA zero-fills the k
+// columns past K in A's and W^T's boxes, so the last k-tile's extra k16
+// steps add nothing; the epilogue skips rows past M and columns past N (N
+// is a multiple of 8, so a column pair is wholly in or out).
 //
-// Both entry points take a plain C interface (pointers and the stream as
-// void*), launch on the caller's stream, allocate nothing, and return
-// cudaGetLastError().
+// The tensor maps are encoded on the host per call with
+// cuTensorMapEncodeTiled, fetched from the driver through the runtime's
+// cudaGetDriverEntryPoint (no -lcuda), and passed as __grid_constant__
+// kernel parameters.  Every entry point takes a plain C interface (pointers
+// and the stream as void*), launches on the caller's stream, allocates
+// nothing, and returns cudaGetLastError(), ENCODE_ERROR + CUresult when a
+// tensor map cannot be encoded, or REGS_ERROR + registers when ptxas gave
+// the GEMM too few registers for setmaxnreg.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <stdint.h>
 
-using namespace nvcuda;
 typedef __nv_bfloat16 bf16;
 
 namespace {
+
+constexpr int ENCODE_ERROR = 10000;
+constexpr int REGS_ERROR = 20000;
+// mf_dw_stencil: blocks of ST_CX 8-channel chunks x ST_WY columns
+constexpr int ST_CX = 8;
+constexpr int ST_WY = 32;
+// mf_pw_gemm: 256 x 184 output tiles (N = 728 is 4 x 184 - 8), A and W^T
+// streamed together through GSTAGES stages that both warpgroups share
+constexpr int BK = 64;       // k per TMA box and swizzle atom (128 bytes)
+constexpr int THREADS = 384; // producer warpgroup + 2 consumer warpgroups
+constexpr int GBM = 256;
+constexpr int GBN = 184;
+constexpr int GSTAGES = 4;
+constexpr int MH = GBM / 128;       // 64-row wgmma panels per warpgroup
+constexpr int PRODUCER_REGS = 40;   // setmaxnreg, per thread
+constexpr int CONSUMER_REGS = 232;
+constexpr int GA_HALF = 64 * BK * 2;        // one consumer's 64 rows of A
+constexpr int GA_TILE = GBM * BK * 2;       // 32 KB
+constexpr int GB_TILE = GBN * BK * 2;       // 23 KB, a multiple of 1024
+constexpr int G_STAGE = GA_TILE + GB_TILE;  // 56,320 bytes
 
 // Eight consecutive channels as f32 (16-byte loads; c is a multiple of 8).
 __device__ __forceinline__ void load8(const float* p, float v[8]) {
@@ -64,212 +114,516 @@ __device__ __forceinline__ void load8(const bf16* p, float v[8]) {
   }
 }
 
-// zb[n,h,w,c] = bf16((sum_t relu(z[n, h+dy*d, w+dx*d, c]) * wdw[t, c]) * s1[c] + c1[c])
-// with t = (dy+1)*3 + (dx+1), taps summed in the order of the reference and
-// no fused multiply-add, so it matches the plain version bit for bit.  One
-// thread computes eight consecutive channels of one pixel.
+// One tap's 8 bf16 weights as f32, loaded where it is used: a volatile load
+// (L1-resident, 13 KB for all taps) that the compiler cannot hoist out of
+// the row loop, where 72 more live registers would halve the occupancy.
+__device__ __forceinline__ void load_tap(const bf16* p, float v[8]) {
+  uint4 u;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(u.x), "=r"(u.y), "=r"(u.z), "=r"(u.w)
+               : "l"(p));
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 f = __bfloat1622float2(h[j]);
+    v[2 * j] = f.x;
+    v[2 * j + 1] = f.y;
+  }
+}
+
+// relu(z[n, h, w + (dx - 1) d, c:c+8]) for dx = 0, 1, 2; zeros outside the
+// image (the zero padding).
 template <typename T>
-__global__ void dw_stencil_kernel(const T* __restrict__ z,
-                                  const bf16* __restrict__ wdw,
-                                  const float* __restrict__ s1,
-                                  const float* __restrict__ c1,
-                                  bf16* __restrict__ zb, int B, int H, int W,
-                                  int C, int d) {
-  const int C8 = C / 8;
-  const long long total = (long long)B * H * W * C8;
-  const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int c = (int)(idx % C8) * 8;
-  const long long p = idx / C8;
-  const int w = (int)(p % W);
-  const long long q = p / W;
-  const int h = (int)(q % H);
-  const long long n = q / H;
-  float acc[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+__device__ __forceinline__ void load_row(const T* __restrict__ z, float v[3][8],
+                                         int n, int h, int w, int H, int W,
+                                         int C, int c, int d) {
 #pragma unroll
-  for (int dy = -1; dy <= 1; ++dy) {
+  for (int dx = 0; dx < 3; ++dx) {
+    const int ww = w + (dx - 1) * d;
+    if (h >= 0 && h < H && ww >= 0 && ww < W) {
+      load8(z + ((n * H + h) * W + ww) * C + c, v[dx]);
 #pragma unroll
-    for (int dx = -1; dx <= 1; ++dx) {
-      const int hh = h + dy * d, ww = w + dx * d;
-      float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-      if (hh >= 0 && hh < H && ww >= 0 && ww < W) {
-        load8(z + ((n * H + hh) * W + ww) * C + c, v);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = fmaxf(v[j], 0.f);
-      }
-      float wt[8];
-      load8(wdw + ((dy + 1) * 3 + (dx + 1)) * C + c, wt);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[j] = __fadd_rn(acc[j], __fmul_rn(v[j], wt[j]));
-    }
-  }
-  float sc[8], sh[8];
-  load8(s1 + c, sc);
-  load8(c1 + c, sh);
-  uint4 out;
-  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    o[j] = __floats2bfloat162_rn(
-        __fadd_rn(__fmul_rn(acc[2 * j], sc[2 * j]), sh[2 * j]),
-        __fadd_rn(__fmul_rn(acc[2 * j + 1], sc[2 * j + 1]), sh[2 * j + 1]));
-  *reinterpret_cast<uint4*>(zb + p * C + c) = out;
-}
-
-constexpr int BM = 128, BN = 128, BK = 32;
-constexpr int LDA = BK + 8;   // padded smem row (bf16): conflict-free ldmatrix
-constexpr int LDB = BN + 8;
-constexpr int LDS = 16 + 4;   // per-warp f32 epilogue tile row
-constexpr int THREADS = 256;  // 8 warps: 2 (M) x 4 (N), 64x32 outputs each
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  const int src_size = valid ? 16 : 0;  // 0: fill the 16 bytes with zeros
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(src_size));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// out[m, n] = sum_k A[m, k] * Wt[k, n] + c2[n]            (FINAL = false, f32)
-// out[m, n] = bf16(that + relu(skip_src[m, n]))           (FINAL = true)
-template <bool FINAL>
-__global__ void __launch_bounds__(THREADS)
-    pw_gemm_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Wt,
-                   const float* __restrict__ c2,
-                   const bf16* __restrict__ skip_src, float* __restrict__ out_f32,
-                   bf16* __restrict__ out_bf16, int M, int K, int N) {
-  __shared__ __align__(128) bf16 sA[2][BM * LDA];
-  __shared__ __align__(128) bf16 sB[2][BK * LDB];
-  __shared__ __align__(128) float sC[THREADS / 32][16 * LDS];
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int wm = warp / 4, wn = warp % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-
-  auto load_stage = [&](int stage, int k0) {
-    for (int i = tid; i < BM * (BK / 8); i += THREADS) {
-      const int r = i / (BK / 8), ch = i % (BK / 8);
-      const int gm = m0 + r, gk = k0 + ch * 8;
-      const bool ok = gm < M && gk < K;
-      cp_async16(&sA[stage][r * LDA + ch * 8],
-                 ok ? A + (long long)gm * K + gk : A, ok);
-    }
-    for (int i = tid; i < BK * (BN / 8); i += THREADS) {
-      const int r = i / (BN / 8), ch = i % (BN / 8);
-      const int gk = k0 + r, gn = n0 + ch * 8;
-      const bool ok = gk < K && gn < N;
-      cp_async16(&sB[stage][r * LDB + ch * 8],
-                 ok ? Wt + (long long)gk * N + gn : Wt, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4][2];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int nk = (K + BK - 1) / BK;
-  load_stage(0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < nk; ++kt) {
-    if (kt + 1 < nk) {
-      load_stage((kt + 1) & 1, (kt + 1) * BK);
-      cp_async_commit();
-      cp_async_wait<1>();
+      for (int j = 0; j < 8; ++j) v[dx][j] = fmaxf(v[dx][j], 0.f);
     } else {
-      cp_async_wait<0>();
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[dx][j] = 0.f;
     }
-    __syncthreads();
-    const bf16* a = sA[kt & 1];
-    const bf16* b = sB[kt & 1];
+  }
+}
+
+// acc += the three terms of tap row ky (dy = ky - 1) for one output, in the
+// plain version's order (dx = -1, 0, 1), each rounded: no FMA.
+__device__ __forceinline__ void add_taps(float acc[8], const float v[3][8],
+                                         const bf16* __restrict__ wdw, int ky,
+                                         int C, int c) {
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[4];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
+  for (int dx = 0; dx < 3; ++dx) {
+    float wt[8];
+    load_tap(wdw + (ky * 3 + dx) * C + c, wt);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], a + (wm * 64 + i * 16) * LDA + kk, LDA);
+    for (int j = 0; j < 8; ++j)
+      acc[j] = __fadd_rn(acc[j], __fmul_rn(v[dx][j], wt[j]));
+  }
+}
+
+// zb[n, h, w, c:c+8] = bf16((sum_t relu(z[n, h+dy*d, w+dx*d, c]) * wdw[t, c])
+// * s1[c] + c1[c]), t = (dy+1)*3 + (dx+1), summed from 0 in t's order.
+// blockIdx.x: channel tile + ST_CX-chunk column tile; blockIdx.y: residue r
+// of h mod d + segment of `rows` steps; blockIdx.z: image.  Step t of
+// residue r is output row h = r + t d.  When input row h + d arrives it
+// closes output h (its dy = +1 terms, added last), continues output h + d
+// (dy = 0) and opens output h + 2d (dy = -1, added first).  Three blocks
+// per SM (<= 85 registers, 24 warps): BN1's affine is read from L1 at each
+// store rather than held, which measured 6-11% faster than two blocks.
+template <typename T>
+__global__ void __launch_bounds__(ST_CX * ST_WY, 3)
+    dw_stencil_kernel(const T* __restrict__ z, const bf16* __restrict__ wdw,
+                      const float* __restrict__ s1,
+                      const float* __restrict__ c1, bf16* __restrict__ zb,
+                      int H, int W, int C, int d, int rows) {
+  const int C8 = C / 8;
+  const int ctiles = (C8 + ST_CX - 1) / ST_CX;
+  const int q = (blockIdx.x % ctiles) * ST_CX + threadIdx.x;
+  const int w = (blockIdx.x / ctiles) * ST_WY + threadIdx.y;
+  if (q >= C8 || w >= W) return;
+  const int c = q * 8;
+  const int r = blockIdx.y % d;
+  const int t0 = (blockIdx.y / d) * rows;
+  const int t1 = min(t0 + rows, (H - r + d - 1) / d);
+  if (t0 >= t1) return;
+  const int n = blockIdx.z;
+  float v[3][8], close[8], cont[8];
+  // the two input rows before the first step's: h0 - d, h0
+  const int h0 = r + t0 * d;
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], b + kk * LDB + wn * 32 + j * 16, LDB);
+  for (int j = 0; j < 8; ++j) close[j] = 0.f;
+  load_row(z, v, n, h0 - d, w, H, W, C, c, d);
+  add_taps(close, v, wdw, 0, C, c);
+  load_row(z, v, n, h0, w, H, W, C, c, d);
+  add_taps(close, v, wdw, 1, C, c);
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+  for (int j = 0; j < 8; ++j) cont[j] = 0.f;
+  add_taps(cont, v, wdw, 0, C, c);
+  for (int t = t0; t < t1; ++t) {
+    const int h = r + t * d;
+    load_row(z, v, n, h + d, w, H, W, C, c, d);
+    add_taps(close, v, wdw, 2, C, c);
+    float sc[8], sh[8];
+    load8(s1 + c, sc);
+    load8(c1 + c, sh);
+    uint4 out;
+    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+    for (int j = 0; j < 4; ++j)
+      o[j] = __floats2bfloat162_rn(
+          __fadd_rn(__fmul_rn(close[2 * j], sc[2 * j]), sh[2 * j]),
+          __fadd_rn(__fmul_rn(close[2 * j + 1], sc[2 * j + 1]),
+                    sh[2 * j + 1]));
+    *reinterpret_cast<uint4*>(zb + ((n * H + h) * W + w) * C + c) = out;
+    if (t + 1 == t1) break;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) close[j] = cont[j];
+    add_taps(close, v, wdw, 1, C, c);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) cont[j] = 0.f;
+    add_taps(cont, v, wdw, 0, C, c);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// PTX wrappers: shared addresses, mbarriers, TMA, wgmma
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Spin until the phase of parity `parity` has completed.  A wait that lasts
+// ~2^32 cycles (seconds) traps: a pipeline fault fails the launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0)
+      t0 = clock64();
+    else if (clock64() - t0 > (1LL << 32))
+      __trap();
+  }
+}
+
+// 2-D tiled TMA load of the box at (c0 = inner element, c1 = row) into
+// shared memory; completion is counted in bytes on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major operand in the 128-byte
+// swizzle: rows of 128 bytes (64 bf16 of k), 8-row atoms of 1024 bytes
+// (stride byte offset 1024), atoms 1024-aligned.  The leading byte offset
+// is unused by swizzled K-major layouts (1 by convention).  Moving k by 16
+// elements inside the atom adds 32 bytes (2 in the >>4 address field).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+// d[64 x 184] += A[64 x 16] * B[16 x 184], both from shared memory,
+// K-major.  Accumulator fragment: thread t of the warpgroup holds, for n8
+// block i (of 23), d[4i + 0/1] at (row 16*(t/32) + (t%32)/4, col 8i +
+// 2*(t%4) + 0/1) and d[4i + 2/3] eight rows lower.
+__device__ __forceinline__ void wgmma_m64n184k16(float (&d)[92], uint64_t da,
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %94, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n184k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91}, "
+      "%92, %93, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma instructions.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The pointwise product alone (mf_pw_gemm): out = A @ Wt^T + c2 (f32) or,
+// FINAL, bf16(that + relu(skip_src)).  One block per GBM x 184 output tile;
+// the producer streams A's GBM x 64 and W^T's 184 x 64 boxes of each k-tile
+// into one stage; consumer warpgroup j multiplies A's rows GBM / 2 j.. (MH
+// panels of 64) with the whole W^T box (m64n184k16).
+template <bool FINAL>
+__global__ void __launch_bounds__(THREADS, 1)
+    gemm_kernel(const __grid_constant__ CUtensorMap map_a,
+                const __grid_constant__ CUtensorMap map_w,
+                const float* __restrict__ c2,
+                const bf16* __restrict__ skip_src, float* __restrict__ out_f32,
+                bf16* __restrict__ out_bf16, int M, int K, int N) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t bars = smem_u32(smem + GSTAGES * G_STAGE);
+  auto full = [&](int s) { return bars + 8u * s; };
+  auto empty = [&](int s) { return bars + 8u * (GSTAGES + s); };
+  const int nkt = (K + BK - 1) / BK;
+  const int n0 = blockIdx.x * GBN, m0 = blockIdx.y * GBM;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < GSTAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), 2);  // one release per consumer warpgroup
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS));
+    if (tid == 0) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < nkt; ++kt) {
+        mbar_wait(empty(stage), phase ^ 1);
+        mbar_expect_tx(full(stage), G_STAGE);
+        const uint32_t dst = smem_u32(smem + stage * G_STAGE);
+        tma_load_2d(dst, &map_a, full(stage), kt * BK, m0);
+        tma_load_2d(dst + GA_TILE, &map_w, full(stage), kt * BK, n0);
+        if (++stage == GSTAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
   }
 
-  float* st = sC[warp];
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS));
+  const int j = tid / 128 - 1;
+  const int lane = tid % 32, wl = (tid % 128) / 32;
+  const bool leader = tid % 128 == 0;
+  // acc[u]: rows 64 (MH j + u) .. of the tile
+  float acc[MH][92];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int u = 0; u < MH; ++u)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::store_matrix_sync(st, acc[i][j], LDS, wmma::mem_row_major);
-      __syncwarp();
-      const int rb = m0 + wm * 64 + i * 16, cb = n0 + wn * 32 + j * 16;
-      for (int e = lane; e < 256; e += 32) {
-        const int r = e / 16, cc = e % 16;
-        const int gm = rb + r, gn = cb + cc;
-        if (gm < M && gn < N) {
-          const long long o = (long long)gm * N + gn;
-          float v = __fadd_rn(st[r * LDS + cc], c2[gn]);
-          if (FINAL) {
-            v = __fadd_rn(v, fmaxf(__bfloat162float(skip_src[o]), 0.f));
-            out_bf16[o] = __float2bfloat16_rn(v);
-          } else {
-            out_f32[o] = v;
+    for (int i = 0; i < 92; ++i) acc[u][i] = 0.f;
+  int stage = 0, prev = 0;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < nkt; ++kt) {
+    mbar_wait(full(stage), phase);
+    const uint32_t base = smem_u32(smem + stage * G_STAGE);
+    const uint64_t db = sw128_desc(base + GA_TILE);
+#pragma unroll
+    for (int u = 0; u < MH; ++u) fence_acc(acc[u]);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int k = 0; k < BK / 16; ++k)
+#pragma unroll
+      for (int u = 0; u < MH; ++u)
+        wgmma_m64n184k16(acc[u],
+                         sw128_desc(base + (MH * j + u) * GA_HALF) + 2 * k,
+                         db + 2 * k);
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int u = 0; u < MH; ++u) fence_acc(acc[u]);
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+#pragma unroll
+    for (int u = 0; u < MH; ++u) fence_acc(acc[u]);
+    if (kt > 0 && leader) mbar_arrive(empty(prev));
+    prev = stage;
+    if (++stage == GSTAGES) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int u = 0; u < MH; ++u) fence_acc(acc[u]);
+
+#pragma unroll
+  for (int u = 0; u < MH; ++u) {
+    const int row0 = m0 + (MH * j + u) * 64 + wl * 16 + lane / 4;
+#pragma unroll
+    for (int i = 0; i < GBN / 8; ++i) {
+      const int col = n0 + i * 8 + (lane % 4) * 2;
+      if (col < N) {
+        const float2 b = *reinterpret_cast<const float2*>(c2 + col);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 8 * h;
+          if (row < M) {
+            float v0 = __fadd_rn(acc[u][4 * i + 2 * h], b.x);
+            float v1 = __fadd_rn(acc[u][4 * i + 2 * h + 1], b.y);
+            const long long o = (long long)row * N + col;
+            if (FINAL) {
+              const float2 s = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(skip_src + o));
+              v0 = __fadd_rn(v0, fmaxf(s.x, 0.f));
+              v1 = __fadd_rn(v1, fmaxf(s.y, 0.f));
+              *reinterpret_cast<__nv_bfloat162*>(out_bf16 + o) =
+                  __floats2bfloat162_rn(v0, v1);
+            } else {
+              *reinterpret_cast<float2*>(out_f32 + o) = make_float2(v0, v1);
+            }
           }
         }
       }
-      __syncwarp();
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A (rows, cols) bf16 row-major tensor, read in boxes of BK columns x
+// box_rows rows with the 128-byte swizzle; out-of-bounds elements read 0.
+int make_map(CUtensorMap* map, const void* ptr, int rows, int cols,
+             int box_rows) {
+  const EncodeTiled enc = encoder();
+  if (!enc) return ENCODE_ERROR + 999;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                         const_cast<void*>(ptr), dims, strides, box, estr,
+                         CU_TENSOR_MAP_INTERLEAVE_NONE,
+                         CU_TENSOR_MAP_SWIZZLE_128B,
+                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
+}
+
+
+// The GEMM's register budget: setmaxnreg only moves registers inside the
+// block's allocation, so the producer's and the consumers' counts must fit
+// in what ptxas gave each of the 384 threads (168).  Returns 0, a CUDA
+// error, or REGS_ERROR + the registers ptxas gave.
+template <bool FINAL>
+int gemm_regs_ok() {
+  static int regs = 0;
+  if (!regs) {
+    cudaFuncAttributes a;
+    const cudaError_t e = cudaFuncGetAttributes(&a, gemm_kernel<FINAL>);
+    if (e != cudaSuccess) return (int)e;
+    regs = a.numRegs;
+  }
+  return regs * THREADS >= 128 * PRODUCER_REGS + 256 * CONSUMER_REGS
+             ? 0
+             : REGS_ERROR + regs;
+}
+
+template <bool FINAL>
+int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mw, const void* c2,
+                const void* skip_src, void* out, int M, int K, int N, int smem,
+                cudaStream_t s) {
+  const int e = gemm_regs_ok<FINAL>();
+  if (e) return e;
+  static int smem_set = 0;  // above 48 KB only after this attribute
+  if (smem > smem_set) {
+    const cudaError_t r = cudaFuncSetAttribute(
+        gemm_kernel<FINAL>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (r != cudaSuccess) return (int)r;
+    smem_set = smem;
+  }
+  const dim3 grid((N + GBN - 1) / GBN, (M + GBM - 1) / GBM);
+  gemm_kernel<FINAL><<<grid, THREADS, smem, s>>>(
+      ma, mw, (const float*)c2, (const bf16*)skip_src,
+      FINAL ? nullptr : (float*)out, FINAL ? (bf16*)out : nullptr, M, K, N);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// The stencil: z (B, H, W, C) f32 or bf16 -> zb (B, H, W, C) bf16.  rows:
+// the plan's output rows per thread (ops/middle_flow.py dw_stencil_plan).
 extern "C" int mf_dw_stencil(const void* z, int z_is_f32, const void* wdw,
                              const void* s1, const void* c1, void* zb, int B,
-                             int H, int W, int C, int d, void* stream) {
-  const long long total = (long long)B * H * W * (C / 8);
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((total + threads - 1) / threads);
+                             int H, int W, int C, int d, int rows,
+                             void* stream) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 || d <= 0 || rows <= 0 ||
+      (long long)B * H * W * C >= (1LL << 31) || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int ctiles = (C / 8 + ST_CX - 1) / ST_CX;
+  const int segs = ((H + d - 1) / d + rows - 1) / rows;
+  const dim3 grid(ctiles * ((W + ST_WY - 1) / ST_WY), d * segs, B);
+  const dim3 block(ST_CX, ST_WY);
   cudaStream_t s = (cudaStream_t)stream;
   if (z_is_f32)
-    dw_stencil_kernel<float><<<blocks, threads, 0, s>>>(
+    dw_stencil_kernel<float><<<grid, block, 0, s>>>(
         (const float*)z, (const bf16*)wdw, (const float*)s1, (const float*)c1,
-        (bf16*)zb, B, H, W, C, d);
+        (bf16*)zb, H, W, C, d, rows);
   else
-    dw_stencil_kernel<bf16><<<blocks, threads, 0, s>>>(
+    dw_stencil_kernel<bf16><<<grid, block, 0, s>>>(
         (const bf16*)z, (const bf16*)wdw, (const float*)s1, (const float*)c1,
-        (bf16*)zb, B, H, W, C, d);
+        (bf16*)zb, H, W, C, d, rows);
   return (int)cudaGetLastError();
 }
 
-// skip_src == NULL: out is f32 [M, N]; otherwise out is bf16 [M, N] and
-// skip_src the bf16 block input [M, N].
-extern "C" int mf_pw_gemm(const void* a, const void* w, const void* c2,
+// The pointwise product: a (M, K) bf16 @ wt (N, K)^T + c2 -> f32, or bf16
+// with relu(skip_src) added when skip_src (M, N) is given.  smem: the plan's
+// shared-memory bytes.
+extern "C" int mf_pw_gemm(const void* a, const void* wt, const void* c2,
                           const void* skip_src, void* out, int M, int K, int N,
-                          void* stream) {
-  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+                          int smem, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 ||
+      smem < 1024 + GSTAGES * G_STAGE + 16 * GSTAGES)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap ma, mw;
+  int e = make_map(&ma, a, M, K, GBM);
+  if (!e) e = make_map(&mw, wt, N, K, GBN);
+  if (e) return e;
   cudaStream_t s = (cudaStream_t)stream;
   if (skip_src)
-    pw_gemm_kernel<true><<<grid, THREADS, 0, s>>>(
-        (const bf16*)a, (const bf16*)w, (const float*)c2,
-        (const bf16*)skip_src, nullptr, (bf16*)out, M, K, N);
-  else
-    pw_gemm_kernel<false><<<grid, THREADS, 0, s>>>(
-        (const bf16*)a, (const bf16*)w, (const float*)c2, nullptr,
-        (float*)out, nullptr, M, K, N);
-  return (int)cudaGetLastError();
+    return launch_gemm<true>(ma, mw, c2, skip_src, out, M, K, N, smem, s);
+  return launch_gemm<false>(ma, mw, c2, nullptr, out, M, K, N, smem, s);
+}
+
+// Registers per thread ptxas gave the GEMM (final: the FINAL variant), or
+// minus a CUDA error.
+extern "C" int mf_pw_gemm_regs(int final) {
+  cudaFuncAttributes a;
+  const cudaError_t e = final
+      ? cudaFuncGetAttributes(&a, gemm_kernel<true>)
+      : cudaFuncGetAttributes(&a, gemm_kernel<false>);
+  return e == cudaSuccess ? a.numRegs : -(int)e;
 }

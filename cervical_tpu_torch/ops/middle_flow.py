@@ -1,5 +1,5 @@
 """Eval-mode Xception middle flow (backbone blocks 4-19): BN fold, the plain
-PyTorch version, and the wrappers of its two Hopper kernels.
+PyTorch version, and the wrappers of its Hopper kernels.
 
 Port of ``cervical_tpu/ops/pallas_xception.py``.  Per block:
 ``skip = relu(x)``; three times [ReLU, depthwise 3x3 (zero pad, dilation
@@ -10,8 +10,9 @@ rounded to the compute dtype.
 
 Tensors are NHWC, as in JAX.  :func:`middle_flow_eval` takes the plain
 version for a CPU tensor only; for a CUDA tensor it launches the kernels of
-``csrc/middle_flow.cu`` (two per separable conv, 96 for the 16 blocks) or
-raises.  Design notes and bounds are in that file's header.
+``csrc/middle_flow.cu`` or raises: ``mf_dw_stencil`` then ``mf_pw_gemm``
+per separable conv, 96 launches for the 16 blocks.  Design notes and
+bounds are in that file's header.
 """
 
 from __future__ import annotations
@@ -50,7 +51,9 @@ def fold_middle_flow(backbone, first: int = 4, count: int = 16,
     * ``s1/c1`` (count, 3, C) f32 — folded bn1 affine after the depthwise;
     * ``wpw``  (count, 3, C, C) ``compute_dtype`` — pointwise weights
       (in, out) with bn2's scale folded in;
-    * ``c2``  (count, 3, C) f32 — folded bn2 shift.
+    * ``c2``  (count, 3, C) f32 — folded bn2 shift;
+    * ``wpw_t`` (count, 3, C, C) — ``wpw`` K-major, (out, in), the layout
+      the kernels' tensor maps read (port-only key).
     """
     wdw, s1, c1, wpw, c2 = [], [], [], [], []
     for b in range(first, first + count):
@@ -76,17 +79,19 @@ def fold_middle_flow(backbone, first: int = 4, count: int = 16,
         c1.append(torch.stack(bc1))
         wpw.append(torch.stack(bwpw))
         c2.append(torch.stack(bc2))
-    return {
+    out = {
         "wdw": torch.stack(wdw).to(compute_dtype).contiguous(),
         "s1": torch.stack(s1).contiguous(),
         "c1": torch.stack(c1).contiguous(),
         "wpw": torch.stack(wpw).to(compute_dtype).contiguous(),
         "c2": torch.stack(c2).contiguous(),
     }
+    out["wpw_t"] = out["wpw"].transpose(-1, -2).contiguous()
+    return out
 
 
 # ---------------------------------------------------------------------------
-# Plain PyTorch version of the two kernels
+# Plain PyTorch version of the kernels
 # ---------------------------------------------------------------------------
 
 def dw_stencil_reference(z, wdw9, s1, c1, dilation: int, dtype):
@@ -114,14 +119,15 @@ def pw_gemm_reference(zb, w, c2, skip_src=None):
     return (z + torch.relu(skip_src.float())).to(skip_src.dtype)
 
 
-def _middle_flow(x, folded, dilation, stencil, gemm):
+def _middle_flow(x, folded, dilation, stencil, gemm, w_key="wpw"):
+    """The block loop; ``gemm`` takes ``folded[w_key]``'s weight."""
     for k in range(folded["wdw"].shape[0]):
         z = x
         for i in range(3):
             zb = stencil(z, folded["wdw"][k, 9 * i:9 * i + 9],
                          folded["s1"][k, i], folded["c1"][k, i], dilation,
                          x.dtype)
-            z = gemm(zb, folded["wpw"][k, i], folded["c2"][k, i],
+            z = gemm(zb, folded[w_key][k, i], folded["c2"][k, i],
                      x if i == 2 else None)
         x = z
     return x
@@ -132,6 +138,49 @@ def middle_flow_reference(x, folded, dilation: int = 1):
     ``pallas_xception.middle_flow_reference``: (B, H, W, C) -> same."""
     return _middle_flow(x, folded, dilation, dw_stencil_reference,
                         pw_gemm_reference)
+
+
+# ---------------------------------------------------------------------------
+# Launch plans of the kernels (mirror csrc/middle_flow.cu's constants)
+# ---------------------------------------------------------------------------
+
+ST_CX, ST_WY, STENCIL_ROWS = 8, 32, 8
+BK, THREADS, GBM, GBN, GSTAGES = 64, 384, 256, 184, 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def dw_stencil_plan(b: int, h: int, w: int, c: int, dilation: int,
+                    rows: int = STENCIL_ROWS) -> dict:
+    """Launch of ``mf_dw_stencil``: blocks of ``ST_CX`` 8-channel chunks x
+    ``ST_WY`` columns, each thread walking ``rows`` output rows of one
+    residue of h mod ``dilation``; grid (channel x column tiles, residues x
+    row segments, images)."""
+    if c % 8 or min(b, h, w, c, dilation, rows) < 1:
+        raise ValueError(f"channels must be a multiple of 8 and sizes >= 1, "
+                         f"got {(b, h, w, c)}, dilation {dilation}, rows "
+                         f"{rows}")
+    segs = _cdiv(_cdiv(h, dilation), rows)
+    return {"grid": (_cdiv(c // 8, ST_CX) * _cdiv(w, ST_WY),
+                     dilation * segs, b),
+            "block": (ST_CX, ST_WY), "rows": rows}
+
+
+def pw_gemm_plan(m: int, k: int, n: int) -> dict:
+    """Launch of ``mf_pw_gemm``: one block per ``GBM`` x ``GBN`` output
+    tile, A's ``BK`` x ``GBM`` and W^T's ``BK`` x ``GBN`` boxes of each
+    k-tile streamed together through ``GSTAGES`` stages (the last k-tile
+    zero-filled past K)."""
+    if k % 8 or n % 8 or m < 1 or k < 8 or n < 8:
+        raise ValueError(f"channels must be multiples of 8 and rows >= 1, "
+                         f"got m={m} k={k} n={n}")
+    smem = 1024 + GSTAGES * (GBM + GBN) * BK * 2 + 16 * GSTAGES
+    return {"grid": (_cdiv(n, GBN), _cdiv(m, GBM)), "threads": THREADS,
+            "k_tiles": _cdiv(k, BK), "k_pad": _cdiv(k, BK) * BK,
+            "smem_bytes": smem, "box_a": (BK, GBM), "box_w": (BK, GBN),
+            "stages": GSTAGES}
 
 
 # ---------------------------------------------------------------------------
@@ -147,17 +196,17 @@ def _lib():
         lib = _build.load(SOURCE)
         vp, i32 = ctypes.c_void_p, ctypes.c_int
         lib.mf_dw_stencil.argtypes = [vp, i32, vp, vp, vp, vp, i32, i32, i32,
-                                      i32, i32, vp]
+                                      i32, i32, i32, vp]
         lib.mf_dw_stencil.restype = i32
-        lib.mf_pw_gemm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, vp]
+        lib.mf_pw_gemm.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
         lib.mf_pw_gemm.restype = i32
+        lib.mf_pw_gemm_regs.argtypes = [i32]
+        lib.mf_pw_gemm_regs.restype = i32
         _lib_handle = lib
     return _lib_handle
 
 
 def _check(name, t, dtype, shape):
-    if not t.is_cuda:
-        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if t.dtype != dtype:
         raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -167,11 +216,25 @@ def _check(name, t, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned (the kernels load "
-                         "16-byte vectors)")
+                         "16-byte vectors and TMA reads 16-byte-aligned "
+                         "rows)")
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
 
 
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _raise(name, rc):
+    if rc >= 20000:
+        raise RuntimeError(f"{name}: ptxas gave the kernel {rc - 20000} "
+                           "registers per thread; its setmaxnreg split (40 "
+                           "+ 232 over 384 threads) needs 168")
+    if rc >= 10000:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed "
+                           f"(CUresult {rc - 10000}; 999: no driver entry)")
+    raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 def dw_stencil(z, wdw9, s1, c1, dilation: int, dtype=torch.bfloat16):
@@ -191,40 +254,46 @@ def dw_stencil(z, wdw9, s1, c1, dilation: int, dtype=torch.bfloat16):
     _check("wdw9", wdw9, torch.bfloat16, (9, c))
     _check("s1", s1, torch.float32, (c,))
     _check("c1", c1, torch.float32, (c,))
+    plan = dw_stencil_plan(b, h, w, c, dilation)
     zb = torch.empty(z.shape, dtype=torch.bfloat16, device=z.device)
     rc = _lib().mf_dw_stencil(z.data_ptr(), int(z.dtype == torch.float32),
                               wdw9.data_ptr(), s1.data_ptr(), c1.data_ptr(),
-                              zb.data_ptr(), b, h, w, c, dilation, _stream(z))
+                              zb.data_ptr(), b, h, w, c, dilation,
+                              plan["rows"], _stream(z))
     if rc:
-        raise RuntimeError(f"mf_dw_stencil launch failed: CUDA error {rc}")
+        _raise("mf_dw_stencil", rc)
     LAUNCHES["dw_stencil"] += 1
     return zb
 
 
-def pw_gemm(zb, w, c2, skip_src=None):
+def pw_gemm(zb, w_t, c2, skip_src=None):
     """Kernel ``mf_pw_gemm``: :func:`pw_gemm_reference` on the card.
-    ``zb`` (B, H, W, K) bf16, ``w`` (K, N) bf16, ``c2`` (N,) f32; returns
-    f32, or with ``skip_src`` (B, H, W, N) bf16 a bf16 tensor."""
-    if zb.ndim != 4:
-        raise ValueError(f"zb must be (B, H, W, C), got {tuple(zb.shape)}")
-    k, n = w.shape[0], w.shape[-1]
+    ``zb`` (B, H, W, K) bf16, ``w_t`` (N, K) bf16 (the weight K-major, as
+    ``fold_middle_flow``'s ``wpw_t``), ``c2`` (N,) f32; returns f32, or
+    with ``skip_src`` (B, H, W, N) bf16 a bf16 tensor."""
+    if zb.ndim != 4 or w_t.ndim != 2:
+        raise ValueError(f"zb must be (B, H, W, K) and w_t (N, K), got "
+                         f"{tuple(zb.shape)} and {tuple(w_t.shape)}")
+    n, k = w_t.shape
     if k % 8 or n % 8:
         raise ValueError(f"channels must be multiples of 8, got {k}x{n}")
     m = zb.numel() // k
     _check("zb", zb, torch.bfloat16, zb.shape[:3] + (k,))
-    _check("w", w, torch.bfloat16, (k, n))
+    _check("w_t", w_t, torch.bfloat16, (n, k))
     _check("c2", c2, torch.float32, (n,))
     out_shape = zb.shape[:3] + (n,)
     if skip_src is not None:
         _check("skip_src", skip_src, torch.bfloat16, out_shape)
+    plan = pw_gemm_plan(m, k, n)
     out = torch.empty(out_shape, device=zb.device,
                       dtype=torch.float32 if skip_src is None
                       else torch.bfloat16)
-    rc = _lib().mf_pw_gemm(zb.data_ptr(), w.data_ptr(), c2.data_ptr(),
+    rc = _lib().mf_pw_gemm(zb.data_ptr(), w_t.data_ptr(), c2.data_ptr(),
                            None if skip_src is None else skip_src.data_ptr(),
-                           out.data_ptr(), m, k, n, _stream(zb))
+                           out.data_ptr(), m, k, n, plan["smem_bytes"],
+                           _stream(zb))
     if rc:
-        raise RuntimeError(f"mf_pw_gemm launch failed: CUDA error {rc}")
+        _raise("mf_pw_gemm", rc)
     LAUNCHES["pw_gemm"] += 1
     return out
 
@@ -234,10 +303,15 @@ def middle_flow_eval(x, folded, dilation: int = 1):
 
     ``folded`` comes from :func:`fold_middle_flow`.  A CPU tensor takes
     :func:`middle_flow_reference`; a CUDA tensor (bf16, C a multiple of 8)
-    runs the two kernels, 96 launches for 16 blocks.  Other devices raise.
+    runs :func:`dw_stencil` then :func:`pw_gemm` (on ``wpw_t``) per
+    separable conv, 96 launches for 16 blocks.  Other devices raise.
     """
     if x.device.type == "cpu":
         return middle_flow_reference(x, folded, dilation)
     if not x.is_cuda:
         raise ValueError(f"middle_flow_eval runs on cpu or cuda, got {x.device}")
-    return _middle_flow(x.contiguous(), folded, dilation, dw_stencil, pw_gemm)
+    if "wpw_t" not in folded:
+        raise KeyError("folded lacks 'wpw_t', the K-major pointwise weights "
+                       "the kernels read: fold with fold_middle_flow")
+    return _middle_flow(x.contiguous(), folded, dilation, dw_stencil, pw_gemm,
+                        "wpw_t")

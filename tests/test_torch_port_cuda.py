@@ -26,16 +26,19 @@ def cuda_device():
 
 
 def _random_folded(seed, nblk, c, device):
-    """Folded weights scaled like tests/test_pallas_xception.py."""
+    """Folded weights scaled like tests/test_pallas_xception.py, with the
+    K-major copy the kernels read, as fold_middle_flow makes it."""
     rng = np.random.default_rng(seed)
     f = {"wdw": rng.standard_normal((nblk, 27, c)) * 0.2,
          "s1": rng.uniform(0.5, 1.5, (nblk, 3, c)),
          "c1": rng.standard_normal((nblk, 3, c)) * 0.1,
          "wpw": rng.standard_normal((nblk, 3, c, c)) * (1.5 / np.sqrt(c)),
          "c2": rng.standard_normal((nblk, 3, c)) * 0.1}
-    return {k: torch.from_numpy(v.astype(np.float32)).to(
+    out = {k: torch.from_numpy(v.astype(np.float32)).to(
         device, torch.bfloat16 if k in ("wdw", "wpw") else torch.float32)
         for k, v in f.items()}
+    out["wpw_t"] = out["wpw"].transpose(-1, -2).contiguous()
+    return out
 
 
 @pytest.mark.parametrize("dilation", [1, 2])
@@ -80,14 +83,115 @@ def test_stencil_is_exact_and_gemm_close(cuda_device, c):
         assert torch.equal(got, ref)
     zb = torch.randn(3, 7, 5, c, generator=g).to(cuda_device, torch.bfloat16)
     w = torch.randn(c, c, generator=g).to(cuda_device, torch.bfloat16)
+    w_t = w.t().contiguous()
     c2 = torch.randn(c, generator=g).to(cuda_device)
-    torch.testing.assert_close(MF.pw_gemm(zb, w, c2),
+    torch.testing.assert_close(MF.pw_gemm(zb, w_t, c2),
                                MF.pw_gemm_reference(zb, w, c2),
                                rtol=1e-4, atol=1e-4)
     skip = z.to(torch.bfloat16)
-    torch.testing.assert_close(MF.pw_gemm(zb, w, c2, skip).float(),
+    torch.testing.assert_close(MF.pw_gemm(zb, w_t, c2, skip).float(),
                                MF.pw_gemm_reference(zb, w, c2, skip).float(),
                                rtol=2 ** -7, atol=1e-3)
+
+
+@pytest.mark.parametrize("dilation", [1, 2])
+@pytest.mark.parametrize("c", [8, 40, 728])
+@pytest.mark.parametrize("bhw", [(3, 7, 5), (3, 13, 211)])
+def test_kernels_match_plain_at_ragged_shapes(cuda_device, bhw, c, dilation):
+    """Both kernels at ragged M (105 and 8192 + 37 rows; 211 columns span
+    7 column tiles of the stencil) and ragged C.  The stencil repeats the
+    plain version's f32 ops in order without FMA: bit-exact, for the bf16
+    block input and the f32 z between convs.  The GEMM sums exact bf16
+    products in f32 in another order: rtol=atol=1e-4; with the skip added
+    and a bf16 output, one bf16 step (2^-7 relative)."""
+    rng = np.random.default_rng(c * 10 + dilation)
+
+    def t(*shape, scale=1.0, dtype=torch.float32):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(cuda_device, dtype)
+    z, x = t(*bhw, c), t(*bhw, c, dtype=torch.bfloat16)
+    w9, w = t(9, c, scale=0.3, dtype=torch.bfloat16), \
+        t(c, c, scale=c ** -0.5, dtype=torch.bfloat16)
+    s1 = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(
+        cuda_device)
+    c1, c2 = t(c, scale=0.1), t(c, scale=0.1)
+    w_t = w.t().contiguous()
+    for zin, skip in ((x, None), (z, None), (z, x)):
+        MF.reset_launches()
+        zb = MF.dw_stencil(zin, w9, s1, c1, dilation)
+        got = MF.pw_gemm(zb, w_t, c2, skip)
+        torch.cuda.synchronize()
+        assert MF.LAUNCHES == {"dw_stencil": 1, "pw_gemm": 1}
+        zb_ref = MF.dw_stencil_reference(zin, w9, s1, c1, dilation,
+                                         torch.bfloat16)
+        assert torch.equal(zb, zb_ref)
+        ref = MF.pw_gemm_reference(zb_ref, w, c2, skip)
+        if skip is None:
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
+        else:
+            torch.testing.assert_close(got.float(), ref.float(),
+                                       rtol=2 ** -7, atol=1e-4)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 4, 16])
+@pytest.mark.parametrize("dilation", [1, 2, 3])
+def test_stencil_row_segments_cover_every_output(cuda_device, monkeypatch,
+                                                 rows, dilation):
+    """Each stencil thread walks ``rows`` output rows of one residue of h
+    mod the dilation, carrying its running sums: segments that end inside
+    the image, one longer than it, and residues with fewer rows than
+    others all give the plain version's zb bit for bit."""
+    import functools
+    monkeypatch.setattr(MF, "dw_stencil_plan", functools.partial(
+        MF.dw_stencil_plan, rows=rows))
+    g = torch.Generator().manual_seed(rows * 10 + dilation)
+    z = torch.randn(2, 14, 37, 24, generator=g).to(cuda_device)
+    w9 = torch.randn(9, 24, generator=g).to(cuda_device, torch.bfloat16)
+    s1, c1 = (torch.randn(24, generator=g).to(cuda_device) for _ in range(2))
+    got = MF.dw_stencil(z, w9, s1, c1, dilation)
+    assert torch.equal(got, MF.dw_stencil_reference(z, w9, s1, c1, dilation,
+                                                    torch.bfloat16))
+
+
+def test_gemm_kernel_has_the_registers_setmaxnreg_needs(cuda_device):
+    """setmaxnreg moves registers inside the block's allocation (producer
+    40 + two consumer warpgroups 232 over 384 threads), so ptxas must give
+    the GEMM 168 per thread; the host refuses to launch otherwise."""
+    lib = MF._lib()
+    assert lib.mf_pw_gemm_regs(0) == 168
+    assert lib.mf_pw_gemm_regs(1) == 168
+    with pytest.raises(RuntimeError, match="setmaxnreg"):
+        MF._raise("mf_pw_gemm", 20000 + 160)
+
+
+def test_kernels_opt_in_to_large_shared_memory(cuda_device):
+    """The GEMM keeps 5 stages of A and W^T boxes, ~196 KB: above the 48
+    KB default, a launch runs only after cudaFuncSetAttribute.  A fresh
+    process (no attribute set yet) runs both GEMM variants once."""
+    import os
+    import subprocess
+    import sys
+    assert MF.pw_gemm_plan(105, 728, 728)["smem_bytes"] > 48 * 1024
+    code = (
+        "import torch; from cervical_tpu_torch.ops import middle_flow as MF\n"
+        "d = torch.device('cuda'); g = torch.Generator().manual_seed(0)\n"
+        "z = torch.randn(1, 15, 7, 728, generator=g).to(d)\n"
+        "w9 = torch.randn(9, 728, generator=g).to(d, torch.bfloat16)\n"
+        "w = torch.randn(728, 728, generator=g).to(d, torch.bfloat16) / 27\n"
+        "v = torch.randn(728, generator=g).to(d)\n"
+        "zb = MF.dw_stencil(z, w9, v, v, 1)\n"
+        "wt = w.t().contiguous(); x = z.to(torch.bfloat16)\n"
+        "torch.testing.assert_close(MF.pw_gemm(zb, wt, v),\n"
+        "    MF.pw_gemm_reference(zb, w, v), rtol=1e-4, atol=1e-4)\n"
+        "torch.testing.assert_close(MF.pw_gemm(zb, wt, v, x).float(),\n"
+        "    MF.pw_gemm_reference(zb, w, v, x).float(), rtol=2 ** -7,\n"
+        "    atol=1e-4)\n"
+        "torch.cuda.synchronize(); print('ok')\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
 def test_wrappers_check_their_inputs(cuda_device):
@@ -105,6 +209,18 @@ def test_wrappers_check_their_inputs(cuda_device):
                       v[:12], v[:12], 1)
     with pytest.raises(ValueError, match="aligned"):
         MF.dw_stencil(z, w9, v, torch.zeros(20, device=cuda_device)[2:18], 1)
+    zb = z.to(torch.bfloat16)
+    w_t = w9.new_zeros(16, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        MF.pw_gemm(zb, w_t, v, skip_src=torch.zeros(
+            1 + z.numel(), device=cuda_device, dtype=torch.bfloat16)[1:]
+            .view(z.shape))
+    with pytest.raises(ValueError, match="shape"):
+        MF.pw_gemm(zb, w9.new_zeros(16, 24), v)  # K 24 against zb's 16
+    with pytest.raises(KeyError, match="wpw_t"):
+        folded = _random_folded(0, 1, 16, cuda_device)
+        del folded["wpw_t"]
+        MF.middle_flow_eval(zb, folded, 1)
 
 
 def test_fused_predictor_matches_plain_on_cuda(cuda_device):
