@@ -60,6 +60,11 @@ P_GH, P_GS, P_GV, P_BLUR = 8, 9, 10, 11
 NPARAMS_FULL = 12
 MAX_SHIFT = 64  # shear shifts clip to [-64, 63]: +-10 deg on 512 stays inside
 BLUR_MODES = ("select", "all", "none")
+# K1's output tile (rows, cols) and the shear slopes |tan(theta/2)|,
+# |sin(theta)| its window buffers are sized for, in 1/10000: 10 degrees
+# rounded up (csrc/warp.cu K1_ROWS/K1_COLS, kTanHalfMax/kSinMax)
+K1_TILE = (32, 32)
+ROTATION_SLOPES = (875, 1737)
 
 # kernel launches, counted by the wrappers where they launch
 LAUNCHES = {"warp_images": 0, "warp_labels": 0, "photometric": 0,
@@ -213,6 +218,62 @@ def _rotate_where(h, wp, nearest: bool, fill):
         h = h.clone()
         h[rot] = _bf16(_rotate(h[rot], wp[rot], nearest, fill[rot]))
     return h
+
+
+def k1_buffers():
+    """(L2 columns, L1 rows, L0 columns): the window sides K1's shared
+    memory holds for its output tile, as ``csrc/warp.cu`` sizes them.  A shift ``floor(k * lever)`` takes at most ``floor(k * (n - 1))
+    + 1`` values over n consecutive levers; the lerp partner adds one."""
+    rows, cols = K1_TILE
+    tan_k, sin_k = ROTATION_SLOPES
+
+    def grow(k, n):
+        return k * (n - 1) // 10000 + 2
+    w2 = cols + grow(tan_k, rows)
+    h1 = rows + grow(sin_k, w2)
+    return w2, h1, w2 + grow(tan_k, h1)
+
+
+def _tap_span(coef, la, lb, c0: float, pa, pb, s: int):
+    """``csrc/warp.cu`` ``tap_span``: [a, b], clipped to [0, s), of the taps
+    a shear reads at positions [pa, pb] for levers [la, lb] (int64
+    tensors); the clipped shift is monotone in the lever."""
+    def shift(i):
+        return torch.clamp(torch.floor(coef * (i.to(torch.float32) - c0)),
+                           -MAX_SHIFT, MAX_SHIFT - 1).long()
+    u, v = shift(la), shift(lb)
+    return (torch.clamp(pa - torch.maximum(u, v) - 1, min=0),
+            torch.clamp(pb - torch.minimum(u, v), max=s - 1))
+
+
+def rotation_windows(tan_half, sint, s: int):
+    """K1's window rule for a rotated S x S image, per output tile: a dict
+    of (tile rows, tile columns) int64 tensors.  ``ra``..``rb`` and
+    ``ca``..``cb`` are the tile's rows and columns; the kernel stages L2
+    (after shear 2) at the tile's rows and columns ``a2``..``b2``, L1
+    (after shear 1) at rows ``a1``..``b1`` and L2's columns, L0 (the
+    resample) at L1's rows and columns ``a0``..``b0``.  ``fits``: all three
+    fit the buffers of :func:`k1_buffers`, else the tile takes the
+    recursive path.  ``tan_half`` and ``sint`` are the row's f32 values
+    (``P_TANH``, ``P_SINT``)."""
+    rows, cols = K1_TILE
+    c0 = float(s // 2)
+    tanc = -torch.as_tensor(tan_half, dtype=torch.float32)
+    sinc = torch.as_tensor(sint, dtype=torch.float32)
+    ra, ca = torch.meshgrid(torch.arange(0, s, rows),
+                            torch.arange(0, s, cols), indexing="ij")
+    rb = torch.clamp(ra + rows, max=s) - 1
+    cb = torch.clamp(ca + cols, max=s) - 1
+    a2, b2 = _tap_span(tanc, ra, rb, c0, ca, cb, s)
+    a1, b1 = _tap_span(sinc, a2, b2, c0, ra, rb, s)
+    a0, b0 = _tap_span(tanc, a1, b1, c0, a2, b2, s)
+    w2, h1, w0 = k1_buffers()
+
+    def side(a, b):
+        return torch.clamp(b - a + 1, min=0)
+    fits = (side(a2, b2) <= w2) & (side(a1, b1) <= h1) & (side(a0, b0) <= w0)
+    return {"ra": ra, "rb": rb, "ca": ca, "cb": cb, "a2": a2, "b2": b2,
+            "a1": a1, "b1": b1, "a0": a0, "b0": b0, "fits": fits}
 
 
 def warp_images_reference(images_planar, warp_params, out_size: int = None,

@@ -27,13 +27,14 @@
    K2 ``warp_labels``, K3 ``photometric`` (select/all/none, bf16 and
    uint8 in) and K5 ``warp_photo_images`` against their plain versions at
    batch 8, 512², on parameter rows sampled as the train step samples them
-   (rotation on 2 images, blur on 2): K2 exact, K1, K3 and K5 within one
-   bf16 step on at most 1e-4 of the elements.  K5 is also held against the
-   K1 -> K3 kernel chain (the count of differing elements printed), and
-   ``augment_batch_kernels(fused=True)``, K5's one caller, against
-   ``fused=False`` (labels exact), with its launch counts zeroed before and
-   read after.  Times each kernel beside its plain version and its bound,
-   and K5 beside K1 + K3.
+   (rotation on 2 images, blur on 2): K1 and K2 bit-exact (K1 also with
+   none and all 8 of the rows rotated, at +-10 degrees, and timed at both),
+   K3 and K5 within one bf16 step on at most 1e-4 of the elements.  K5 is
+   also held against the K1 -> K3 kernel chain (the count of differing
+   elements printed), and ``augment_batch_kernels(fused=True)``, K5's one
+   caller, against ``fused=False`` (labels exact), with its launch counts
+   zeroed before and read after.  Times each kernel beside its plain
+   version and its bound, and K5 beside K1 + K3.
 5. Drives the training path: ``SegTrainer`` at the default config (xception,
    os16, 512², 5 classes, bf16, Adam 1e-4, focal + dice, class weights
    (1,1,5,3,4)) with ``data.aug_backend="pallas"`` on 32 synthetic 512²
@@ -452,17 +453,26 @@ def warp_phase(torch, W, A, dev, g, b=8, s=512):
     px = b * s * s
     recs = {}
 
+    # K1 at the train step's mix and at none / all 8 rotated (+-10 deg) on
+    # the same rows: the same f32 operations as the plain version, equal
+    # bit for bit
+    mixes = {"": wp}
+    for mix, angle in (("none_rotated", [0.0] * b),
+                       ("all_rotated", [10.0, -10.0] * (b // 2))):
+        mixes[mix] = W.make_warp_params(
+            dict(params, angle=torch.tensor(angle)), (s, s), (s, s)).to(dev)
     errs, shares = [], []
-    for out_dtype, step_abs, step_rel in ((torch.bfloat16, 0.0, 2.0 ** -7),
-                                          (torch.uint8, 1.0, 0.0)):
-        got = W.warp_images(x, wp, s, out_dtype)
-        torch.cuda.synchronize()
-        ref = W.warp_images_reference(x, wp, s, out_dtype)
-        err, share, ok = one_step_ok(torch, got, ref, step_rel, step_abs)
-        check(ok, f"warp_images ({out_dtype}) disagrees: max {err}, "
-              f"{share:.3g} of elements differ")
-        errs.append(err)
-        shares.append(share)
+    for mix, rows in mixes.items():
+        for out_dtype in (torch.bfloat16, torch.uint8):
+            got = W.warp_images(x, rows, s, out_dtype)
+            torch.cuda.synchronize()
+            ref = W.warp_images_reference(x, rows, s, out_dtype)
+            err, share, _ = one_step_ok(torch, got, ref)
+            check(torch.equal(got, ref), f"warp_images ({out_dtype}, "
+                  f"{mix or 'main path mix'}) differs from its plain version: "
+                  f"max {err}, {share:.3g} of elements differ")
+            errs.append(err)
+            shares.append(share)
     # the function's f32 operations per output pixel, not the kernel's
     # recomputation: one bilinear resample, 3 channels x 3 two-tap passes
     # of 2 products, 2 sums and a bf16 rounding (45; the taps and weights
@@ -472,8 +482,11 @@ def warp_phase(torch, W, A, dev, g, b=8, s=512):
     recs["warp_images"] = {
         "max_abs_err": max(errs), "mismatch_share": max(shares),
         "ms": cuda_ms(torch, lambda: W.warp_images(x, wp, s), 50),
+        **{f"ms_{mix}": cuda_ms(torch, lambda: W.warp_images(x, rows, s), 50)
+           for mix, rows in mixes.items() if mix},
         "plain_ms": cuda_ms(torch, lambda: W.warp_images_reference(x, wp, s), 5),
-        "timed": f"({b},3,{s},{s}) uint8 NHWC view -> bf16, {n_rot} rotated",
+        "timed": f"({b},3,{s},{s}) uint8 NHWC view -> bf16, {n_rot} rotated "
+                 "(ms_none_rotated, ms_all_rotated: 0 and 8 at +-10 deg)",
         "bounds": (images.numel() + px * 3 * 2 + wp.numel() * 4, k1_ops)}
 
     got = W.warp_labels(labels, wp, s)
@@ -524,6 +537,10 @@ def warp_phase(torch, W, A, dev, g, b=8, s=512):
               f"{r['bound_ms']:.4f} by {r['bound_by']}), max_abs_err "
               f"{r['max_abs_err']:.3g}, {r['mismatch_share']:.3g} of elements "
               f"differ; {r['timed']}")
+    k1 = recs["warp_images"]
+    print(f"warp_images at 0 / {n_rot} / {b} of {b} rotated: "
+          f"{k1['ms_none_rotated']:.4f} / {k1['ms']:.4f} / "
+          f"{k1['ms_all_rotated']:.4f} ms")
     return recs
 
 
@@ -984,9 +1001,8 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "library": NO_LIBRARY, "timed_shape": r["timed"],
-            **({"k1_k3_ms": r["k1_k3_ms"],
-                "chain_differing": r["chain_differing"]}
-               if "k1_k3_ms" in r else {})})
+            **{k: r[k] for k in ("ms_none_rotated", "ms_all_rotated",
+                                 "k1_k3_ms", "chain_differing") if k in r}})
     print(json.dumps({"k4_middle_flow_eval": k4}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,130 @@
+#!/usr/bin/env python3
+"""Time K1 ``warp_images`` of two checkouts of the port on one card, in
+turns, so that a before/after is read on one card.
+
+    python scripts/torch_warp_compare.py --roots OLD NEW [--order 0110]
+
+For each digit of ``--order`` (default parent, change, change, parent) it
+starts one process with that root's ``cervical_tpu_torch`` first on the
+path, builds that root's ``csrc/warp.cu`` and, at the train step's shapes
+(batch 8, 512², the uint8 NHWC batch read through its permuted view), runs
+that root's K1 at three mixes of the same parameter rows: none rotated,
+the smoke's mix (``sample_augment_params(rotate_prefix=2)`` as
+``chip_smoke.warp_phase`` draws it) and all 8 rotated at +-10 degrees;
+bf16 and uint8 out.  Each launch is first compared with that root's
+``warp_images_reference`` (the count of differing elements is printed),
+then timed with this checkout's ``chip_smoke.cuda_ms`` (calls queued
+behind a spin of the card, so the events time device work).  K2
+``warp_labels``, K3 ``photometric`` and K5 ``warp_photo_images`` on the
+smoke's mix are timed beside it as a control (K2 and K5 share K1's shear
+arithmetic).  Each run prints one line ``warpcompare {...}`` with the
+card's name and power limit.  Needs a CUDA card; imports no JAX.
+"""
+
+import argparse
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import time
+
+MIXES = ("none", "smoke", "all")
+
+
+def mix_rows(torch, W, A, b, s):
+    """{mix: (B, 8) warp rows} on the CPU, the smoke's draw for every mix:
+    angle 0 everywhere, the smoke's angles, or +-10 everywhere."""
+    params = A.sample_augment_params(torch.Generator().manual_seed(2), b,
+                                     rotate_prefix=b // 4, blur_suffix=b // 4)
+    rows = {}
+    for mix in MIXES:
+        p = dict(params)
+        if mix == "none":
+            p["angle"] = torch.zeros(b)
+        elif mix == "all":
+            p["angle"] = torch.tensor([10.0, -10.0] * (b // 2))
+        rows[mix] = W.make_warp_params(p, (s, s), (s, s))
+    return params, rows
+
+
+def one(root):
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    import torch
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_warp_compare.py: no CUDA device")
+    from cervical_tpu_torch.ops import _build
+    from cervical_tpu_torch.ops import augment as A
+    from cervical_tpu_torch.ops import warp as W
+    assert os.path.abspath(W.__file__).startswith(root)
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_timing", os.path.join(here, "chip_smoke.py"))
+    timing = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(timing)
+    cuda_ms = timing.cuda_ms
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60).stdout.strip()
+    t0 = time.perf_counter()
+    _build.build([W.SOURCE])
+    build_s = time.perf_counter() - t0
+
+    dev = torch.device("cuda")
+    b, s = 8, 512
+    g = torch.Generator().manual_seed(2)
+    params, rows = mix_rows(torch, W, A, b, s)
+    # the smoke's image and label draws follow its params draw
+    A.sample_augment_params(g, b, rotate_prefix=b // 4, blur_suffix=b // 4)
+    images = torch.randint(0, 256, (b, s, s, 3), generator=g,
+                           dtype=torch.uint8).to(dev)
+    labels = torch.randint(0, 5, (b, s, s), generator=g,
+                           dtype=torch.uint8).to(dev)
+    x = images.permute(0, 3, 1, 2)
+    rows = {m: r.to(dev) for m, r in rows.items()}
+    res = {"root": root, "card": card, "build_s": build_s,
+           "rotated": {m: int((r[:, W.P_ANGLE] != 0).sum())
+                       for m, r in rows.items()},
+           "k1_ms": {}, "k1_differing": {}}
+    for mix, wp in rows.items():
+        for dt in (torch.bfloat16, torch.uint8):
+            key = f"{mix}_{str(dt).split('.')[-1]}"
+            got = W.warp_images(x, wp, s, dt)
+            torch.cuda.synchronize()
+            ref = W.warp_images_reference(x, wp, s, dt)
+            res["k1_differing"][key] = int((got != ref).sum())
+            res["k1_ms"][key] = cuda_ms(
+                torch, lambda: W.warp_images(x, wp, s, dt), 50)
+    wp = rows["smoke"]
+    gains, flags = params["gains"].to(dev), params["blur"].to(dev)
+    warped = W.warp_images(x, wp, s)
+    full = torch.cat([wp, gains.float(), flags.float()[:, None]], 1)
+    res["control_ms"] = {
+        "warp_labels": cuda_ms(torch, lambda: W.warp_labels(labels, wp, s), 50),
+        "photometric": cuda_ms(torch, lambda: W.photometric(
+            warped, gains, flags), 50),
+        "warp_photo_images": cuda_ms(
+            torch, lambda: W.warp_photo_images(x, full, s), 50)}
+    print("warpcompare " + json.dumps(res), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--roots", nargs=2, metavar=("OLD", "NEW"))
+    ap.add_argument("--order", default="0110")
+    ap.add_argument("--one", help=argparse.SUPPRESS)
+    a = ap.parse_args()
+    if a.one:
+        return one(a.one)
+    rc = 0
+    for i in a.order:
+        root = os.path.abspath(a.roots[int(i)])
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--one", root], cwd=root, timeout=1200)
+        rc = rc or r.returncode
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

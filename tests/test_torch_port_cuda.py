@@ -265,28 +265,38 @@ def _warp_case(seed, b, src_hw, s, angles):
     return p, wp, imgs, lbls
 
 
-@pytest.mark.parametrize("src_hw,s", [((64, 64), 64), ((40, 64), 64),
-                                      ((512, 512), 512)])
-def test_warp_kernels_match_plain(cuda_device, src_hw, s):
+_MIXED = [3.0, -3.0, 10.0, -10.0, 0, 0, 0, 0]
+
+
+@pytest.mark.parametrize("src_hw,s,angles", [
+    ((64, 64), 64, _MIXED), ((40, 64), 64, _MIXED), ((512, 512), 512, _MIXED),
+    ((512, 512), 512, [10.0, -10.0] * 4),
+    ((512, 512), 512, [3.0, -3.0] * 4),
+    ((512, 512), 512, [1.0, -1.0] * 4),
+    # past K1's window buffers: those tiles take the recursive path
+    ((64, 64), 64, [30.0, -30.0, 45.0, 10.0, 0.0, 0.0, -10.0, 20.0]),
+    # 100 is no multiple of K1's 32 x 32 tile; 67 no multiple of the
+    # un-rotated images' 4-pixel stores
+    ((40, 64), 100, [10.0, -10.0, 3.0, -3.0, 1.0, -1.0, 0.0, 0.0]),
+    ((67, 70), 67, [5.0, 0.0, -7.0, 0.0, 0.0, 2.0, 0.0, 0.0])])
+def test_warp_kernels_match_plain(cuda_device, src_hw, s, angles):
     """K1 and K2 on the card against their plain versions on the same rows:
-    scale above and below 1, flip, paste, +-3/+-10 degree rotations and 0,
-    a non-square source, an NHWC source read through its permuted view.
-    Both repeat the plain versions' f32 ops with the same roundings, so K2
-    is exact and K1 is held to one bf16 step (it is expected exact)."""
+    scale above and below 1, flip, paste, rotations and 0, a non-square
+    source, an NHWC source read through its permuted view.  Both repeat
+    the plain versions' f32 ops with the same roundings, so both are equal
+    bit for bit: K1 in bf16 and uint8 out, whether a tile's rotation is
+    staged in shared memory (a tap outside its window computed by the
+    recursive path) or, past the buffers, recursive throughout."""
     from cervical_tpu_torch.ops import warp as W
-    _, wp, imgs, lbls = _warp_case(s, 8, src_hw, s,
-                                   [3.0, -3.0, 10.0, -10.0, 0, 0, 0, 0])
+    _, wp, imgs, lbls = _warp_case(s, 8, src_hw, s, angles)
     wpd, xd, ld = wp.to(cuda_device), imgs.to(cuda_device), lbls.to(cuda_device)
     W.reset_launches()
     for out_dtype in (torch.bfloat16, torch.uint8):
         got = W.warp_images(xd.permute(0, 3, 1, 2), wpd, s, out_dtype)
+        torch.cuda.synchronize()
         ref = W.warp_images_reference(xd.permute(0, 3, 1, 2), wpd, s,
                                       out_dtype)
-        torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs()
-        step = 1.0 if out_dtype == torch.uint8 else \
-            2.0 ** -8 * ref.float().abs().clamp(min=1.0)
-        assert bool((err <= step).all()), float(err.max())
+        assert torch.equal(got, ref), int((got != ref).sum())
     got = W.warp_labels(ld, wpd, s)
     assert torch.equal(got, W.warp_labels_reference(ld, wpd, s))
     assert W.LAUNCHES == {"warp_images": 2, "warp_labels": 1,
