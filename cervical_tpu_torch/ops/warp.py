@@ -47,8 +47,8 @@ import torch
 
 from cervical_tpu_torch.ops import _build
 from cervical_tpu_torch.ops.augment import (_const, _hsv_to_rgb, _lut_gains,
-                                            _paste_offsets, _resized_dims,
-                                            _rgb_to_hsv)
+                                            _mod, _paste_offsets,
+                                            _resized_dims, _rgb_to_hsv)
 
 SOURCE = _build.CSRC_DIR / "warp.cu"
 
@@ -65,6 +65,10 @@ BLUR_MODES = ("select", "all", "none")
 # rounded up (csrc/warp.cu K1_ROWS/K1_COLS, kTanHalfMax/kSinMax)
 K1_TILE = (32, 32)
 ROTATION_SLOPES = (875, 1737)
+# K3's per-image gain tables: entries for every integer rintf(h) in
+# [0, 180], rintf(s) and rintf(v) in [0, 255] (csrc/warp.cu kHueEntries,
+# kSatEntries, kValEntries)
+GAIN_TABLE_SIZES = (181, 256, 256)
 
 # kernel launches, counted by the wrappers where they launch
 LAUNCHES = {"warp_images": 0, "warp_labels": 0, "photometric": 0,
@@ -313,13 +317,47 @@ def _blur1d(x, dim: int):
     return acc
 
 
+def gain_entries(hr, sr, vr, gh, gs, gv):
+    """What the HSV map needs of each channel's integer value ``rint(h)``,
+    ``rint(s)``, ``rint(v)`` under the image's gains, as cv2's uint8 LUTs
+    give it (``csrc/warp.cu`` ``hue_entry``, ``sat_entry``, ``val_entry``):
+    (the hue's x factor ``1 - |mod(hp, 2) - 1|``, its sextant ``floor(hp) %
+    6`` as int32, ``s / 255``, ``v``), ``hp`` the gained hue times 2/60.
+    :func:`photometric_reference`'s operations (``_lut_gains``, then the
+    start of ``_hsv_to_rgb``) up to the values that depend on one channel
+    alone; each channel broadcasts with its own gain."""
+    h, s, v = _lut_gains(hr, sr, vr, gh, gs, gv)
+    hp = (h * 2.0) * _const(1.0 / 60.0, h)
+    return (1.0 - torch.abs(_mod(hp, 2.0) - 1.0),
+            torch.floor(hp).to(torch.int32) % 6, s * _const(1.0 / 255.0, s),
+            v)
+
+
+def photometric_tables(gains):
+    """K3's per-image gain tables for (B, 3) gains, as the kernel fills
+    them in shared memory: :func:`gain_entries` at every integer index,
+    ``hue_factor`` and ``hue_sextant`` (B, 181), ``sat`` and ``val`` (B,
+    256).  A pixel whose index falls outside a table (input outside
+    [0, 255]) takes :func:`gain_entries` directly."""
+    g = gains.to(torch.float32)
+
+    def idx(n):
+        return torch.arange(n, dtype=torch.float32, device=g.device)[None]
+    factor, sextant, sat, val = gain_entries(
+        *(idx(n) for n in GAIN_TABLE_SIZES), *(g[:, k:k + 1] for k in range(3)))
+    return {"hue_factor": factor, "hue_sextant": sextant, "sat": sat,
+            "val": val}
+
+
 def photometric_reference(images_planar, gains, blur_flags,
                           out_dtype=torch.bfloat16, blur_mode: str = "select"):
     """Plain version of K3: (B, 3, H, W) uint8/bf16/f32 in [0, 255], (B, 3)
     gains, (B,) blur flags -> (B, 3, H, W) ``out_dtype`` in [0, 1]: the
     optional blur (rows, then columns), cv2-LUT HSV gains, x f32(1/255).
     ``blur_mode`` "select" blurs where the flag is set; "all"/"none"
-    ignore the flags."""
+    ignore the flags.  Input outside [0, 255] (f32) is not clipped: the
+    same operations run on it, the result outside [0, 1] where they give
+    that."""
     if blur_mode not in BLUR_MODES:
         raise ValueError(f"blur_mode must be one of {BLUR_MODES}, got "
                          f"{blur_mode!r}")
@@ -456,7 +494,11 @@ def warp_labels(labels, warp_params, out_size: int = None):
 def photometric(images_planar, gains, blur_flags, out_dtype=torch.bfloat16,
                 blur_mode: str = "select"):
     """K3: (B, 3, H, W) uint8/bf16/f32 in [0, 255], (B, 3) gains, (B,)
-    blur flags -> (B, 3, H, W) bf16 (or f32) in [0, 1]."""
+    blur flags -> (B, 3, H, W) bf16 (or f32) in [0, 1].  Input outside
+    [0, 255] (possible in f32) is neither clipped nor refused: the kernel
+    computes :func:`photometric_reference`'s operations on it, the gain of
+    a channel value outside the kernel's tables computed per pixel, so the
+    result equals the plain version's there too."""
     if blur_mode not in BLUR_MODES:
         raise ValueError(f"blur_mode must be one of {BLUR_MODES}, got "
                          f"{blur_mode!r}")
@@ -472,7 +514,10 @@ def photometric(images_planar, gains, blur_flags, out_dtype=torch.bfloat16,
     b, _, h, w = x.shape
     x = x.contiguous()
     g = gains.to(x.device, torch.float32).contiguous()
-    fl = blur_flags.to(x.device, torch.uint8).contiguous()
+    fl = blur_flags.to(x.device)
+    # bool is one byte of 0 or 1: read in place, no cast kernel
+    fl = (fl.view(torch.uint8) if fl.dtype == torch.bool
+          else fl.to(torch.uint8)).contiguous()
     if tuple(g.shape) != (b, 3) or tuple(fl.shape) != (b,):
         raise ValueError(f"gains must be ({b}, 3) and blur_flags ({b},), got "
                          f"{tuple(g.shape)}, {tuple(fl.shape)}")

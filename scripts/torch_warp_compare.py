@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Time K1 ``warp_images`` of two checkouts of the port on one card, in
-turns, so that a before/after is read on one card.
+"""Time the augmentation kernels of two checkouts of the port on one card,
+in turns, so that a before/after is read on one card.
 
     python scripts/torch_warp_compare.py --roots OLD NEW [--order 0110]
 
 For each digit of ``--order`` (default parent, change, change, parent) it
 starts one process with that root's ``cervical_tpu_torch`` first on the
 path, builds that root's ``csrc/warp.cu`` and, at the train step's shapes
-(batch 8, 512², the uint8 NHWC batch read through its permuted view), runs
-that root's K1 at three mixes of the same parameter rows: none rotated,
-the smoke's mix (``sample_augment_params(rotate_prefix=2)`` as
-``chip_smoke.warp_phase`` draws it) and all 8 rotated at +-10 degrees;
-bf16 and uint8 out.  Each launch is first compared with that root's
-``warp_images_reference`` (the count of differing elements is printed),
-then timed with this checkout's ``chip_smoke.cuda_ms`` (calls queued
-behind a spin of the card, so the events time device work).  K2
-``warp_labels``, K3 ``photometric`` and K5 ``warp_photo_images`` on the
-smoke's mix are timed beside it as a control (K2 and K5 share K1's shear
-arithmetic).  Each run prints one line ``warpcompare {...}`` with the
-card's name and power limit.  Needs a CUDA card; imports no JAX.
+(batch 8, 512², the uint8 NHWC batch read through its permuted view),
+reads on the same parameter rows:
+
+* K3 ``photometric`` on K1's bf16 and uint8 outputs, bf16 out, in each blur
+  mode: "select" with the smoke's flags (the last 2 of 8 blurred, as
+  ``chip_smoke.warp_phase`` draws them), "all" and "none";
+* K2 ``warp_labels`` at three mixes of the rows: none rotated, the smoke's
+  mix (``sample_augment_params(rotate_prefix=2)``) and all 8 rotated at
+  +-10 degrees;
+* K1 ``warp_images`` at the same three mixes, bf16 and uint8 out, and K5
+  ``warp_photo_images`` on the smoke's mix, as controls.
+
+Each launch is first compared with that root's plain version (the count of
+differing elements is printed), then timed with this checkout's
+``chip_smoke.cuda_ms`` (calls queued behind a spin of the card, so the
+events time device work).  Each run prints one line ``warpcompare {...}``
+with the card's name and power limit and ptxas's register lines for the
+warp kernels.  Needs a CUDA card; imports no JAX.
 """
 
 import argparse
@@ -68,7 +74,7 @@ def one(root):
                            "--format=csv,noheader"], capture_output=True,
                           text=True, timeout=60).stdout.strip()
     t0 = time.perf_counter()
-    _build.build([W.SOURCE])
+    log = _build.build([W.SOURCE]).get(W.SOURCE.name, "")
     build_s = time.perf_counter() - t0
 
     dev = torch.device("cuda")
@@ -84,28 +90,37 @@ def one(root):
     x = images.permute(0, 3, 1, 2)
     rows = {m: r.to(dev) for m, r in rows.items()}
     res = {"root": root, "card": card, "build_s": build_s,
+           "ptxas": [ln.strip() for ln in log.splitlines()
+                     if "registers" in ln or "spill" in ln],
            "rotated": {m: int((r[:, W.P_ANGLE] != 0).sum())
                        for m, r in rows.items()},
+           "k3_ms": {}, "k3_differing": {}, "k2_ms": {}, "k2_differing": {},
            "k1_ms": {}, "k1_differing": {}}
-    for mix, wp in rows.items():
-        for dt in (torch.bfloat16, torch.uint8):
-            key = f"{mix}_{str(dt).split('.')[-1]}"
-            got = W.warp_images(x, wp, s, dt)
-            torch.cuda.synchronize()
-            ref = W.warp_images_reference(x, wp, s, dt)
-            res["k1_differing"][key] = int((got != ref).sum())
-            res["k1_ms"][key] = cuda_ms(
-                torch, lambda: W.warp_images(x, wp, s, dt), 50)
+
+    def read(kernel, key, fn, ref):
+        got = fn()
+        torch.cuda.synchronize()
+        res[f"{kernel}_differing"][key] = int((got != ref()).sum())
+        res[f"{kernel}_ms"][key] = cuda_ms(torch, fn, 50)
+
     wp = rows["smoke"]
     gains, flags = params["gains"].to(dev), params["blur"].to(dev)
-    warped = W.warp_images(x, wp, s)
+    for dt in (torch.bfloat16, torch.uint8):
+        warped = W.warp_images(x, wp, s, dt)
+        for mode in W.BLUR_MODES:
+            read("k3", f"{str(dt).split('.')[-1]}_{mode}",
+                 lambda: W.photometric(warped, gains, flags, blur_mode=mode),
+                 lambda: W.photometric_reference(warped, gains, flags,
+                                                 blur_mode=mode))
+    for mix, r in rows.items():
+        read("k2", mix, lambda: W.warp_labels(labels, r, s),
+             lambda: W.warp_labels_reference(labels, r, s))
+        for dt in (torch.bfloat16, torch.uint8):
+            read("k1", f"{mix}_{str(dt).split('.')[-1]}",
+                 lambda: W.warp_images(x, r, s, dt),
+                 lambda: W.warp_images_reference(x, r, s, dt))
     full = torch.cat([wp, gains.float(), flags.float()[:, None]], 1)
-    res["control_ms"] = {
-        "warp_labels": cuda_ms(torch, lambda: W.warp_labels(labels, wp, s), 50),
-        "photometric": cuda_ms(torch, lambda: W.photometric(
-            warped, gains, flags), 50),
-        "warp_photo_images": cuda_ms(
-            torch, lambda: W.warp_photo_images(x, full, s), 50)}
+    res["k5_ms"] = cuda_ms(torch, lambda: W.warp_photo_images(x, full, s), 50)
     print("warpcompare " + json.dumps(res), flush=True)
 
 

@@ -278,18 +278,26 @@ _MIXED = [3.0, -3.0, 10.0, -10.0, 0, 0, 0, 0]
     # 100 is no multiple of K1's 32 x 32 tile; 67 no multiple of the
     # un-rotated images' 4-pixel stores
     ((40, 64), 100, [10.0, -10.0, 3.0, -3.0, 1.0, -1.0, 0.0, 0.0]),
-    ((67, 70), 67, [5.0, 0.0, -7.0, 0.0, 0.0, 2.0, 0.0, 0.0])])
+    ((67, 70), 67, [5.0, 0.0, -7.0, 0.0, 0.0, 2.0, 0.0, 0.0]),
+    # S < 64: K2's shears wrap by an integer %, not one conditional step
+    ((40, 40), 40, _MIXED), ((30, 50), 63, [9.0, -9.0, 2.0, 0.0] * 2)])
 def test_warp_kernels_match_plain(cuda_device, src_hw, s, angles):
     """K1 and K2 on the card against their plain versions on the same rows:
     scale above and below 1, flip, paste, rotations and 0, a non-square
-    source, an NHWC source read through its permuted view.  Both repeat
-    the plain versions' f32 ops with the same roundings, so both are equal
-    bit for bit: K1 in bf16 and uint8 out, whether a tile's rotation is
-    staged in shared memory (a tap outside its window computed by the
-    recursive path) or, past the buffers, recursive throughout."""
+    source, an NHWC source read through its permuted view, labels
+    contiguous and as a view with a column stride of 2.  Both repeat the
+    plain versions' f32 ops with the same roundings, so both are equal bit
+    for bit: K1 in bf16 and uint8 out, whether a tile's rotation is staged
+    in shared memory (a tap outside its window computed by the recursive
+    path) or, past the buffers, recursive throughout; K2 whether its shears
+    wrap by one step (S >= 64) or by %, its runs stored whole or not."""
     from cervical_tpu_torch.ops import warp as W
     _, wp, imgs, lbls = _warp_case(s, 8, src_hw, s, angles)
     wpd, xd, ld = wp.to(cuda_device), imgs.to(cuda_device), lbls.to(cuda_device)
+    wide = torch.zeros(lbls.shape[:2] + (2 * lbls.shape[2],),
+                       dtype=torch.uint8, device=cuda_device)
+    strided = wide[:, :, ::2]
+    strided.copy_(ld)
     W.reset_launches()
     for out_dtype in (torch.bfloat16, torch.uint8):
         got = W.warp_images(xd.permute(0, 3, 1, 2), wpd, s, out_dtype)
@@ -297,32 +305,87 @@ def test_warp_kernels_match_plain(cuda_device, src_hw, s, angles):
         ref = W.warp_images_reference(xd.permute(0, 3, 1, 2), wpd, s,
                                       out_dtype)
         assert torch.equal(got, ref), int((got != ref).sum())
-    got = W.warp_labels(ld, wpd, s)
-    assert torch.equal(got, W.warp_labels_reference(ld, wpd, s))
-    assert W.LAUNCHES == {"warp_images": 2, "warp_labels": 1,
+    ref = W.warp_labels_reference(ld, wpd, s)
+    for labels in (ld, strided):
+        got = W.warp_labels(labels, wpd, s)
+        assert torch.equal(got, ref), int((got != ref).sum())
+    assert W.LAUNCHES == {"warp_images": 2, "warp_labels": 2,
                           "photometric": 0, "warp_photo_images": 0}
 
 
+def _k3_case(case, in_dtype, device):
+    """(images, gains, flags) for K3 on the card.  "512": the train step's
+    shape, flags on the last 2 of 8 images; "67x70", "5x13": widths that
+    are no multiple of 8 (the scalar path); "slice": ``x[1:]`` of a batch of
+    3 x 5 x 8 images (uint8: 8 bytes off 16-byte alignment); "offset": a
+    view one element into its storage (misaligned for every type, the
+    scalar path); "outside": values outside [0, 255] where the type holds
+    them (uint8: the ends of its range); "extreme": gains that wrap the hue
+    past 180, clip saturation and value, negative, 0 and exactly 1; "cube":
+    every (r, g, b) of uint8 (a 4096 x 4096 image; bf16 and f32: the 160
+    bf16 values nearest 0, 1.6, 3.2, .. 254.4, cubed), the divisions of
+    the HSV map at every operand pair those inputs give."""
+    rng = np.random.default_rng(len(case))
+    shape = {"512": (8, 3, 512, 512), "67x70": (4, 3, 67, 70),
+             "5x13": (4, 3, 5, 13), "slice": (5, 3, 5, 8),
+             "offset": (4, 3, 16, 24), "outside": (4, 3, 24, 32),
+             "extreme": (6, 3, 16, 32), "cube": (1, 3, 4096, 4096)}[case]
+    x = rng.integers(0, 256, shape).astype(np.float32)
+    if in_dtype != torch.uint8:  # non-integer values, as K1 writes bf16
+        x = x + rng.integers(0, 8, shape) / 8.0
+    if case == "cube":
+        lv = np.arange(256, dtype=np.float32) if in_dtype == torch.uint8 \
+            else torch.tensor(np.arange(160) * 1.6).to(torch.bfloat16).float(
+            ).numpy()
+        cube = np.stack(np.meshgrid(lv, lv, lv, indexing="ij")).reshape(3, -1)
+        x = np.zeros(shape, np.float32).reshape(3, -1)
+        x[:, :cube.shape[1]] = cube
+        x = x.reshape(shape)
+    if case == "outside":
+        x = rng.uniform(-300.0, 600.0, shape).astype(np.float32)
+        if in_dtype == torch.uint8:
+            x = np.where(x < 128, 0.0, 255.0)
+    b = shape[0] - (case == "slice")
+    gains = rng.uniform(0.7, 1.3, (b, 3)).astype(np.float32)
+    if case == "extreme":
+        gains = np.array([[1.1, 1.7, 1.3], [1.0, 1.0, 1.0], [-0.35, 1.0, 2.5],
+                          [3.7, 0.0, 1.0], [0.0, 255.0, 1e-6],
+                          [0.9, 0.3, 0.7]], np.float32)
+    # "select" blurs the flagged images' tiles first: none flagged, all,
+    # the train step's last 2 of 8, every other
+    flags = torch.tensor([{"outside": False, "extreme": True}.get(
+        case, i >= b - 2 if case == "512" else i % 2 == 0)
+        for i in range(b)], device=device)
+    t = torch.from_numpy(x).to(device, in_dtype)
+    if case == "slice":
+        t = t[1:]
+    elif case == "offset":
+        buf = torch.empty(t.numel() + 1, dtype=in_dtype, device=device)
+        t = buf[1:].view(shape).copy_(t)
+    return t, torch.from_numpy(gains).to(device), flags
+
+
+@pytest.mark.parametrize("case", ["512", "67x70", "5x13", "slice", "offset",
+                                  "outside", "extreme", "cube"])
 @pytest.mark.parametrize("mode", ["select", "all", "none"])
 @pytest.mark.parametrize("in_dtype", [torch.uint8, torch.bfloat16,
                                       torch.float32])
-def test_photometric_kernel_matches_plain(cuda_device, mode, in_dtype):
-    """K3 against its plain version: the same f32 ops in the same order,
-    so the bf16 output is expected exact; held to one bf16 step."""
+def test_photometric_kernel_matches_plain(cuda_device, mode, in_dtype, case):
+    """K3 against its plain version: the same f32 ops in the same order
+    (the gains read from per-image tables filled by the same operations,
+    an index outside them computed per pixel), so bf16 and f32 outputs are
+    equal bit for bit, whether runs move as 16-byte vectors (W % 8 == 0,
+    pointers aligned) or one element each, whether a group of pixels
+    divides by the checked fast sequence or takes the exact path."""
     from cervical_tpu_torch.ops import warp as W
-    rng = np.random.default_rng(7)
-    x = torch.from_numpy(rng.integers(0, 256, (4, 3, 67, 70)).astype(
-        np.float32)).to(cuda_device, in_dtype)
-    gains = torch.from_numpy(rng.uniform(0.7, 1.3, (4, 3)).astype(
-        np.float32)).to(cuda_device)
-    flags = torch.tensor([True, False, True, False], device=cuda_device)
+    x, gains, flags = _k3_case(case, in_dtype, cuda_device)
+    W.reset_launches()
     for out_dtype in (torch.bfloat16, torch.float32):
         got = W.photometric(x, gains, flags, out_dtype, mode)
         ref = W.photometric_reference(x, gains, flags, out_dtype, mode)
         torch.cuda.synchronize()
-        err = (got.float() - ref.float()).abs()
-        assert bool((err <= 2.0 ** -8 * ref.float().abs() + 1e-7).all()), \
-            float(err.max())
+        assert torch.equal(got, ref), int((got != ref).sum())
+    assert W.LAUNCHES["photometric"] == 2
 
 
 @pytest.mark.parametrize("src_hw,s", [((64, 64), 64), ((40, 64), 64),
