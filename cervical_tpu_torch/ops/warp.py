@@ -62,9 +62,11 @@ MAX_SHIFT = 64  # shear shifts clip to [-64, 63]: +-10 deg on 512 stays inside
 BLUR_MODES = ("select", "all", "none")
 # K1's output tile (rows, cols) and the shear slopes |tan(theta/2)|,
 # |sin(theta)| its window buffers are sized for, in 1/10000: 10 degrees
-# rounded up (csrc/warp.cu K1_ROWS/K1_COLS, kTanHalfMax/kSinMax)
+# rounded up (csrc/warp.cu K1_ROWS/K1_COLS, kTanHalfMax/kSinMax); K5 stages
+# the same tile grown by the blur's reach on each side (K5_HALO)
 K1_TILE = (32, 32)
 ROTATION_SLOPES = (875, 1737)
+K5_HALO = 2
 # K3's per-image gain tables: entries for every integer rintf(h) in
 # [0, 180], rintf(s) and rintf(v) in [0, 255] (csrc/warp.cu kHueEntries,
 # kSatEntries, kValEntries)
@@ -224,11 +226,14 @@ def _rotate_where(h, wp, nearest: bool, fill):
     return h
 
 
-def k1_buffers():
-    """(L2 columns, L1 rows, L0 columns): the window sides K1's shared
-    memory holds for its output tile, as ``csrc/warp.cu`` sizes them.  A shift ``floor(k * lever)`` takes at most ``floor(k * (n - 1))
-    + 1`` values over n consecutive levers; the lerp partner adds one."""
-    rows, cols = K1_TILE
+def k1_buffers(halo: int = 0):
+    """(L2 columns, L1 rows, L0 columns): the window sides of the shared
+    memory in which ``csrc/warp.cu`` stages a rotation (``Windows``), for
+    K1's output tile grown by ``halo`` on each side (0: K1; 2: K5, whose
+    blur reads 2 pixels past its tile).  A shift ``floor(k * lever)`` takes
+    at most ``floor(k * (n - 1)) + 1`` values over n consecutive levers;
+    the lerp partner adds one."""
+    rows, cols = (n + 2 * halo for n in K1_TILE)
     tan_k, sin_k = ROTATION_SLOPES
 
     def grow(k, n):
@@ -250,28 +255,32 @@ def _tap_span(coef, la, lb, c0: float, pa, pb, s: int):
             torch.clamp(pb - torch.minimum(u, v), max=s - 1))
 
 
-def rotation_windows(tan_half, sint, s: int):
-    """K1's window rule for a rotated S x S image, per output tile: a dict
-    of (tile rows, tile columns) int64 tensors.  ``ra``..``rb`` and
-    ``ca``..``cb`` are the tile's rows and columns; the kernel stages L2
-    (after shear 2) at the tile's rows and columns ``a2``..``b2``, L1
-    (after shear 1) at rows ``a1``..``b1`` and L2's columns, L0 (the
-    resample) at L1's rows and columns ``a0``..``b0``.  ``fits``: all three
-    fit the buffers of :func:`k1_buffers`, else the tile takes the
-    recursive path.  ``tan_half`` and ``sint`` are the row's f32 values
-    (``P_TANH``, ``P_SINT``)."""
+def rotation_windows(tan_half, sint, s: int, halo: int = 0):
+    """The window rule of ``csrc/warp.cu`` ``rotate_region`` for a rotated
+    S x S image, per output tile: a dict of (tile rows, tile columns) int64
+    tensors.  ``ra``..``rb`` and ``ca``..``cb`` are the region staged: the
+    tile grown by ``halo`` on each side (0: K1; 2: K5 on an image that
+    blurs), clipped to the image.  The kernel stages L2 (after shear 2) at
+    the region's rows and columns ``a2``..``b2``, L1 (after shear 1) at rows
+    ``a1``..``b1`` and L2's columns, L0 (the resample) at L1's rows and
+    columns ``a0``..``b0``.  ``fits``: all three fit the buffers of
+    :func:`k1_buffers` for that halo, else the region takes the recursive
+    path.  ``tan_half`` and ``sint`` are the row's f32 values (``P_TANH``,
+    ``P_SINT``)."""
     rows, cols = K1_TILE
     c0 = float(s // 2)
     tanc = -torch.as_tensor(tan_half, dtype=torch.float32)
     sinc = torch.as_tensor(sint, dtype=torch.float32)
-    ra, ca = torch.meshgrid(torch.arange(0, s, rows),
+    ta, tb = torch.meshgrid(torch.arange(0, s, rows),
                             torch.arange(0, s, cols), indexing="ij")
-    rb = torch.clamp(ra + rows, max=s) - 1
-    cb = torch.clamp(ca + cols, max=s) - 1
+    ra = torch.clamp(ta - halo, min=0)
+    ca = torch.clamp(tb - halo, min=0)
+    rb = torch.clamp(ta + rows + halo, max=s) - 1
+    cb = torch.clamp(tb + cols + halo, max=s) - 1
     a2, b2 = _tap_span(tanc, ra, rb, c0, ca, cb, s)
     a1, b1 = _tap_span(sinc, a2, b2, c0, ra, rb, s)
     a0, b0 = _tap_span(tanc, a1, b1, c0, a2, b2, s)
-    w2, h1, w0 = k1_buffers()
+    w2, h1, w0 = k1_buffers(halo)
 
     def side(a, b):
         return torch.clamp(b - a + 1, min=0)

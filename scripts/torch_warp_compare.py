@@ -10,14 +10,15 @@ path, builds that root's ``csrc/warp.cu`` and, at the train step's shapes
 (batch 8, 512², the uint8 NHWC batch read through its permuted view),
 reads on the same parameter rows:
 
-* K3 ``photometric`` on K1's bf16 and uint8 outputs, bf16 out, in each blur
-  mode: "select" with the smoke's flags (the last 2 of 8 blurred, as
-  ``chip_smoke.warp_phase`` draws them), "all" and "none";
-* K2 ``warp_labels`` at three mixes of the rows: none rotated, the smoke's
-  mix (``sample_augment_params(rotate_prefix=2)``) and all 8 rotated at
-  +-10 degrees;
-* K1 ``warp_images`` at the same three mixes, bf16 and uint8 out, and K5
-  ``warp_photo_images`` on the smoke's mix, as controls.
+* K5 ``warp_photo_images``, bf16 out, at three mixes of the rows: "none"
+  (no image rotated or blurred), "smoke" (the smoke's draw: the first 2 of
+  8 rotated by ``sample_augment_params(rotate_prefix=2)``, the last 2
+  blurred) and "all" (all 8 rotated at +-10 degrees and blurred), and
+  beside each the K1 -> K3 kernel chain on the same rows;
+* as controls, K3 ``photometric`` on K1's bf16 and uint8 outputs, bf16 out,
+  in each blur mode ("select" with the smoke's flags, "all", "none"), K2
+  ``warp_labels`` and K1 ``warp_images`` (bf16 and uint8 out) at the same
+  three mixes of the angles.
 
 Each launch is first compared with that root's plain version (the count of
 differing elements is printed), then timed with this checkout's
@@ -39,19 +40,23 @@ MIXES = ("none", "smoke", "all")
 
 
 def mix_rows(torch, W, A, b, s):
-    """{mix: (B, 8) warp rows} on the CPU, the smoke's draw for every mix:
-    angle 0 everywhere, the smoke's angles, or +-10 everywhere."""
+    """({mix: (B, 8) warp rows}, {mix: (B,) blur flags}) on the CPU, the
+    smoke's draw for every mix: angle 0 and no blur everywhere, the smoke's
+    angles and flags, or +-10 degrees and blur everywhere."""
     params = A.sample_augment_params(torch.Generator().manual_seed(2), b,
                                      rotate_prefix=b // 4, blur_suffix=b // 4)
-    rows = {}
+    rows, flags = {}, {}
     for mix in MIXES:
         p = dict(params)
         if mix == "none":
             p["angle"] = torch.zeros(b)
+            p["blur"] = torch.zeros(b, dtype=torch.bool)
         elif mix == "all":
             p["angle"] = torch.tensor([10.0, -10.0] * (b // 2))
+            p["blur"] = torch.ones(b, dtype=torch.bool)
         rows[mix] = W.make_warp_params(p, (s, s), (s, s))
-    return params, rows
+        flags[mix] = p["blur"]
+    return params, rows, flags
 
 
 def one(root):
@@ -80,7 +85,7 @@ def one(root):
     dev = torch.device("cuda")
     b, s = 8, 512
     g = torch.Generator().manual_seed(2)
-    params, rows = mix_rows(torch, W, A, b, s)
+    params, rows, flags = mix_rows(torch, W, A, b, s)
     # the smoke's image and label draws follow its params draw
     A.sample_augment_params(g, b, rotate_prefix=b // 4, blur_suffix=b // 4)
     images = torch.randint(0, 256, (b, s, s, 3), generator=g,
@@ -89,13 +94,15 @@ def one(root):
                            dtype=torch.uint8).to(dev)
     x = images.permute(0, 3, 1, 2)
     rows = {m: r.to(dev) for m, r in rows.items()}
+    flags = {m: f.to(dev) for m, f in flags.items()}
     res = {"root": root, "card": card, "build_s": build_s,
            "ptxas": [ln.strip() for ln in log.splitlines()
                      if "registers" in ln or "spill" in ln],
            "rotated": {m: int((r[:, W.P_ANGLE] != 0).sum())
                        for m, r in rows.items()},
-           "k3_ms": {}, "k3_differing": {}, "k2_ms": {}, "k2_differing": {},
-           "k1_ms": {}, "k1_differing": {}}
+           "k5_ms": {}, "k5_differing": {}, "chain_ms": {},
+           "chain_differing": {}, "k3_ms": {}, "k3_differing": {},
+           "k2_ms": {}, "k2_differing": {}, "k1_ms": {}, "k1_differing": {}}
 
     def read(kernel, key, fn, ref):
         got = fn()
@@ -103,14 +110,22 @@ def one(root):
         res[f"{kernel}_differing"][key] = int((got != ref()).sum())
         res[f"{kernel}_ms"][key] = cuda_ms(torch, fn, 50)
 
-    wp = rows["smoke"]
-    gains, flags = params["gains"].to(dev), params["blur"].to(dev)
+    gains = params["gains"].to(dev)
+    for mix, r in rows.items():
+        fl = flags[mix]
+        full = torch.cat([r, gains.float(), fl.float()[:, None]], 1)
+        read("k5", mix, lambda: W.warp_photo_images(x, full, s),
+             lambda: W.warp_photo_images_reference(x, full, s))
+        read("chain", mix,
+             lambda: W.photometric(W.warp_images(x, r, s), gains, fl),
+             lambda: W.warp_photo_images_reference(x, full, s))
+    wp, fl = rows["smoke"], flags["smoke"]
     for dt in (torch.bfloat16, torch.uint8):
         warped = W.warp_images(x, wp, s, dt)
         for mode in W.BLUR_MODES:
             read("k3", f"{str(dt).split('.')[-1]}_{mode}",
-                 lambda: W.photometric(warped, gains, flags, blur_mode=mode),
-                 lambda: W.photometric_reference(warped, gains, flags,
+                 lambda: W.photometric(warped, gains, fl, blur_mode=mode),
+                 lambda: W.photometric_reference(warped, gains, fl,
                                                  blur_mode=mode))
     for mix, r in rows.items():
         read("k2", mix, lambda: W.warp_labels(labels, r, s),
@@ -119,8 +134,6 @@ def one(root):
             read("k1", f"{mix}_{str(dt).split('.')[-1]}",
                  lambda: W.warp_images(x, r, s, dt),
                  lambda: W.warp_images_reference(x, r, s, dt))
-    full = torch.cat([wp, gains.float(), flags.float()[:, None]], 1)
-    res["k5_ms"] = cuda_ms(torch, lambda: W.warp_photo_images(x, full, s), 50)
     print("warpcompare " + json.dumps(res), flush=True)
 
 

@@ -388,34 +388,59 @@ def test_photometric_kernel_matches_plain(cuda_device, mode, in_dtype, case):
     assert W.LAUNCHES["photometric"] == 2
 
 
-@pytest.mark.parametrize("src_hw,s", [((64, 64), 64), ((40, 64), 64),
-                                      ((67, 70), 67), ((512, 512), 512)])
-def test_warp_photo_kernel_matches_plain_and_chain(cuda_device, src_hw, s):
+_ALT = [1, 0, 1, 0, 1, 0, 1, 0]
+
+
+@pytest.mark.parametrize("src_hw,s,angles,flags", [
+    ((64, 64), 64, _MIXED, _ALT), ((40, 64), 64, _MIXED, _ALT),
+    ((512, 512), 512, _MIXED, _ALT),
+    # 67: S % 4 != 0, each value stored alone
+    ((67, 70), 67, _MIXED, _ALT),
+    # 100: the last tile row and column ragged (4 of 32), stored as runs
+    ((40, 64), 100, [10.0, -10.0, 3.0, -3.0, 1.0, -1.0, 0.0, 0.0],
+     [1, 1, 0, 0, 1, 0, 1, 1]),
+    # every image rotated at +-10 degrees and blurred: each edge tile's
+    # halo crosses the image's edge
+    ((512, 512), 512, [10.0, -10.0] * 4, [1] * 8),
+    ((64, 64), 64, [10.0, -10.0] * 4, [1] * 8),
+    # all blurred, half rotated: the heavy-first order over 2 classes
+    ((64, 64), 64, [0.0, 5.0, 0.0, -5.0, 0.0, 7.0, 0.0, -7.0], [1] * 8),
+    # past the window buffers: those regions take the recursive path
+    ((64, 64), 64, [30.0, -30.0, 45.0, 10.0, 0.0, 0.0, -10.0, 20.0],
+     [1, 0, 1, 1, 0, 1, 0, 1]),
+    # 40 images, 9 / 7 / 13 / 11 in the four cost classes: each block's
+    # image found over two ballots of 32
+    ((40, 36), 36, [0.0, 5.0, 0.0, -8.0, 0.0] * 8,
+     [1, 0, 0, 1, 1, 0, 1] * 5 + [1, 1, 0, 0, 0])])
+def test_warp_photo_kernel_matches_plain_and_chain(cuda_device, src_hw, s,
+                                                   angles, flags):
     """K5 against its plain version and against the K1 -> K3 kernel chain
     on the same rows: images rotated and blurred, rotated only, blurred
-    only, neither; a ragged output size.  The same f32 ops with the same
-    roundings as the chain, so both are expected exact; held to one bf16
-    step."""
+    only, neither; ragged output sizes; the (B, H, W, 3) batch read
+    through its permuted view, as ``augment_batch_kernels`` passes it, and
+    a contiguous planar copy; bf16 and f32 out.  The same f32 ops with the
+    same roundings as the chain, so equal bit for bit, whether a region's
+    rotation is staged in shared memory (a tap outside its window computed
+    by the recursive path) or recursive throughout."""
     from cervical_tpu_torch.ops import warp as W
-    p, wp, imgs, _ = _warp_case(s + 1, 8, src_hw, s,
-                                [3.0, -3.0, 10.0, -10.0, 0, 0, 0, 0])
-    flags = torch.tensor([1, 0, 1, 0, 1, 0, 1, 0], dtype=torch.bool)
-    full = torch.cat([wp, p["gains"].float(), flags.float()[:, None]],
+    p, wp, imgs, _ = _warp_case(s + 1, len(angles), src_hw, s, angles)
+    fl = torch.tensor(flags, dtype=torch.bool)
+    full = torch.cat([wp, p["gains"].float(), fl.float()[:, None]],
                      1).to(cuda_device)
     x = imgs.to(cuda_device).permute(0, 3, 1, 2)
     W.reset_launches()
-    for out_dtype in (torch.bfloat16, torch.float32):
-        got = W.warp_photo_images(x, full, s, out_dtype)
-        ref = W.warp_photo_images_reference(x, full, s, out_dtype)
-        chain = W.photometric(W.warp_images(x, full[:, :8], s),
-                              full[:, 8:11], flags.to(cuda_device), out_dtype)
-        torch.cuda.synchronize()
-        for want in (ref, chain):
-            err = (got.float() - want.float()).abs()
-            assert bool((err <= 2.0 ** -8 * want.float().abs() + 1e-7)
-                        .all()), float(err.max())
-    assert W.LAUNCHES == {"warp_images": 2, "warp_labels": 0,
-                          "photometric": 2, "warp_photo_images": 2}
+    for src in (x, x.contiguous()):
+        for out_dtype in (torch.bfloat16, torch.float32):
+            got = W.warp_photo_images(src, full, s, out_dtype)
+            ref = W.warp_photo_images_reference(src, full, s, out_dtype)
+            chain = W.photometric(W.warp_images(src, full[:, :8], s),
+                                  full[:, 8:11], fl.to(cuda_device),
+                                  out_dtype)
+            torch.cuda.synchronize()
+            for want in (ref, chain):
+                assert torch.equal(got, want), int((got != want).sum())
+    assert W.LAUNCHES == {"warp_images": 4, "warp_labels": 0,
+                          "photometric": 4, "warp_photo_images": 4}
 
 
 def test_augment_batch_kernels_on_card(cuda_device):

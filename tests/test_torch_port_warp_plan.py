@@ -57,18 +57,19 @@ def _check_level(valid, at, rows, cols, lo, hi, s):
     return out, stray
 
 
+@pytest.mark.parametrize("halo", [0, W.K5_HALO])
 @pytest.mark.parametrize("s", [64, 512])
 @pytest.mark.parametrize("angle", [a for a in range(-10, 11) if a] + [30])
-def test_rotation_windows_cover_the_plain_chains_taps(angle, s):
+def test_rotation_windows_cover_the_plain_chains_taps(angle, s, halo):
     tile = W.K1_TILE
     tan_half, sint = _row(angle, s)
-    win = W.rotation_windows(tan_half, sint, s)
+    win = W.rotation_windows(tan_half, sint, s, halo)
     if angle == 30:
         # past ~10 degrees the windows outgrow the buffers: those tiles take
         # the recursive path
         assert not bool(win["fits"].all())
         return
-    w2, h1, w0 = W.k1_buffers()
+    w2, h1, w0 = W.k1_buffers(halo)
     sides = (win["b2"] - win["a2"] + 1, win["b1"] - win["a1"] + 1,
              win["b0"] - win["a0"] + 1)
     assert all(int(v.max()) <= m for v, m in zip(sides, (w2, h1, w0)))
@@ -101,26 +102,41 @@ def test_rotation_windows_cover_the_plain_chains_taps(angle, s):
                                                               k["b0"])]) \
                 + n1 + 2 * n2 + 4 * n3
     per_output = resamples / (s * s)
-    print(f"angle {angle} S {s} tile {tile}: {per_output:.3f} resamples per "
-          f"output, {wrapped} wrapped reads")
+    print(f"angle {angle} S {s} tile {tile} halo {halo}: {per_output:.3f} "
+          f"resamples per output, {wrapped} wrapped reads")
     assert per_output <= 2.0
     if s == 512:
         # only the image's edges wrap: ~0.3% of the outputs at 10 degrees
         assert wrapped <= 0.005 * s * s
 
 
-def test_buffers_fit_static_shared_memory():
-    """The Python rule sizes the kernel's buffers from the kernel's own
-    constants, read from ``csrc/warp.cu``.  At 32 x 32 the three windows
-    take (36, 40, 41) values a side: L1 in f32 beside L0 in bf16, which L2
-    (f32) reuses, under the 48 KB a block has without opting in."""
+@pytest.mark.parametrize("halo", [0, W.K5_HALO])
+def test_buffers_fit_static_shared_memory(halo):
+    """The Python rule sizes the kernels' buffers from the kernel's own
+    constants, read from ``csrc/warp.cu``.  K1's 32 x 32 tile takes windows
+    of (36, 40, 41) values a side, K5's 36 x 36 region (the tile and the
+    blur's halo) (41, 44, 46): L1 in f32 beside L0 in bf16, which L2 (f32)
+    reuses; K5 adds its gain tables (181 hue entries of 8 bytes, 256 + 256
+    of 4) and lays its staged f32 tile (36 rows of 40) over L1.  Each fits
+    the 48 KB a block has without opting in."""
     src = W.SOURCE.read_text()
 
     def ints(*names):
         return tuple(int(re.search(rf"\b{n} = (\d+)", src)[1])
                      for n in names)
-    assert ints("K1_ROWS", "K1_COLS") == W.K1_TILE == (32, 32)
+    rows, cols = ints("K1_ROWS", "K1_COLS")
+    assert (rows, cols) == W.K1_TILE == (32, 32)
     assert ints("kTanHalfMax", "kSinMax") == W.ROTATION_SLOPES
-    w2, h1, w0 = W.k1_buffers()
-    assert (w2, h1, w0) == (36, 40, 41)
-    assert 4 * 3 * h1 * w2 + max(2 * 3 * h1 * w0, 4 * 3 * 32 * w2) <= 48 * 1024
+    assert ints("K5_HALO") == (W.K5_HALO,)
+    w2, h1, w0 = W.k1_buffers(halo)
+    assert (w2, h1, w0) == {0: (36, 40, 41), 2: (41, 44, 46)}[halo]
+    r2 = rows + 2 * halo
+    l1, l0, l2 = 4 * 3 * h1 * w2, 2 * 3 * h1 * w0, 4 * 3 * r2 * w2
+    total = l1 + max(l0, l2)
+    if halo:
+        hue, sat, val = W.GAIN_TABLE_SIZES
+        total += 8 * hue + 4 * (sat + val)
+        (pad,) = ints("K3_PAD")
+        assert 4 * 3 * r2 * (cols + 2 * pad) <= l1  # the staged tile
+        assert (l1, l0, l2, total) == (21648, 12144, 17712, 42856)
+    assert total <= 48 * 1024
