@@ -35,6 +35,15 @@ The fit slice:
 * K5 ``ops.warp.warp_photo_images`` (K1 then K3 in one kernel), behind
   ``augment_batch_kernels(fused=True)``.
 
+Training on the JAX package's defaults:
+
+* ``cervical_tpu_torch.ops.warp_xla`` — the einsum augmentation backend,
+  the default ``aug_backend``;
+* ``cervical_tpu_torch.train.graphs`` — ``steps_per_call`` K-step calls
+  captured and replayed as CUDA graphs;
+* ``cervical_tpu_torch.data.resident`` — the device-resident dataset and
+  ``SegTrainer.run_epoch_resident``.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -4,7 +4,7 @@ Mirrors ``cervical_tpu/config.py`` (``SegDataConfig``, ``SegTrainConfig``,
 ``load_config``, ``parse_cli_overrides``) with the same names, defaults and
 override syntax (``--a.b.c value``).  The predictor's fields and those the
 segmentation train and eval steps read are here.  Fields that only tune how
-JAX dispatches work to the TPU are accepted, so configs written for the JAX
+JAX lowers work for the TPU are accepted, so configs written for the JAX
 package load unchanged, and have no effect in the port (each says so).
 """
 
@@ -35,16 +35,20 @@ class SegDataConfig:
     val: float = 0.3
     scale_min: float = 0.25
     scale_max: float = 2.0
-    # 2-shear rotation approximation of the einsum backend; the kernel
-    # backend is always the exact Paeth 3-shear.  The einsum backend is not
-    # ported yet, so this has no effect in the port.
+    # the einsum backend's rotation: False = the exact Paeth 3-shear, True =
+    # the 2-shear approximation (one shear fewer, ~1.5% shape error at 10
+    # degrees).  The kernel backend is always the exact 3-shear.
     two_shear: bool = False
-    # the train step's augmentation backend: "pallas" runs the K1-K3
-    # kernels (``ops/warp.augment_batch_kernels``; the name is the JAX
-    # package's); "einsum" (the JAX default) is not ported yet and the
-    # trainer raises NotImplementedError for it.
+    # the train step's augmentation backend: "einsum" (the default,
+    # ``ops/warp_xla.augment_batch_einsum``: batched products, gathers and
+    # elementwise passes) or "pallas" (the K1-K3 kernels,
+    # ``ops/warp.augment_batch_kernels``; the name is the JAX package's)
     aug_backend: str = "einsum"
-    # JAX scanned-step dispatch knob; no effect in the port (no scan).
+    # K-step calls only (steps_per_call > 1): augment the K sub-batches as
+    # one (K*B) batch before the K steps instead of inside each.  Requires
+    # aug_backend="pallas", whose per-image rotation and blur make the
+    # merged batch equal the per-step path bit for bit; every train-step
+    # factory raises ValueError for the einsum backend.
     aug_pre_batch: bool = False
 
 
@@ -90,24 +94,30 @@ class SegTrainConfig:
     # run the eval step's forward with the fused middle-flow kernels (K4,
     # ``ops/middle_flow.py``; xception only); the train step never does
     fused_middle_eval: bool = False
-    # JAX device-mesh size; the port runs on one card
+    # JAX device-mesh size; no effect in the port, which runs on one card
     num_devices: Optional[int] = None
     eval_batch_size: int = 8
     # steps dispatched ahead of the host reading their metrics: the epoch
     # loop keeps this many unsynced steps in flight
     pipeline_depth: int = 8
-    # JAX scan length; no effect in the port (one step per call; fit feeds
-    # a BatchLoader)
+    # optimizer steps per call: run_epoch groups this many batches into one
+    # K-step call (on the card a replayed CUDA graph, train/graphs.py); a
+    # ragged tail of fewer batches runs as single steps.  1 = one step per
+    # call, eager.
     steps_per_call: int = 8
     # JAX dropout PRNG implementation; no effect in the port (the model's
     # dropouts draw from its own torch.Generator)
     dropout_rng_impl: str = "rbg"
     # JAX rematerialization knob; no effect in the port
     remat_entry: bool = False
-    # JAX device-resident epoch; not ported yet, no effect in the port (fit
-    # feeds a BatchLoader)
+    # fit uploads the train and val sets to the card once
+    # (data/resident.py) and the epoch's K-step calls read their batches
+    # there: no per-step image upload.  Off: the host BatchLoader feeds it.
     device_resident: bool = False
-    # JAX resident-epoch shuffle mode; no effect in the port
+    # the resident train set's per-epoch shuffle: "gather" (each step
+    # gathers its rows by a host-permuted index, no data motion), "images"
+    # (the set permuted on the card, a transient 2x of it), "chunks" (the
+    # batch order only), "none"
     resident_shuffle: str = "gather"
 
 

@@ -33,11 +33,17 @@ def host_local_batches(loader: Iterable, divisor: int = 1,
 
 
 def device_prefetch(loader: Iterable, device, depth: int = 2,
-                    with_weights: bool = False, divisor: int = 1) -> Iterator:
+                    with_weights: bool = False, divisor: int = 1,
+                    group: int = 1) -> Iterator:
     """Batches of ``loader`` as tensors on ``device``: a thread reads (and,
     for a CUDA device, pins) up to ``depth`` host batches ahead, the caller's
     thread enqueues each upload just before it is used.  Padding and weights
-    as :func:`host_local_batches`.  A loader's exception is raised here."""
+    as :func:`host_local_batches`.  A loader's exception is raised here.
+
+    ``group`` > 1 stacks that many consecutive batches into (K, B, ...)
+    arrays, uploaded with one pinned copy each, for the trainer's K-step
+    calls; a ragged tail of fewer than ``group`` batches arrives as plain
+    (B, ...) batches (tell them apart by ``ndim``)."""
     device = torch.device(device)
     q: queue.Queue = queue.Queue(maxsize=depth)
     done = object()
@@ -50,9 +56,18 @@ def device_prefetch(loader: Iterable, device, depth: int = 2,
 
     def producer():
         try:
+            pending = []
             for batch in host_local_batches(loader, divisor, with_weights):
                 if stop.is_set():
                     return
+                if group <= 1:
+                    q.put(tuple(pin(a) for a in batch))
+                    continue
+                pending.append(batch)
+                if len(pending) == group:
+                    q.put(tuple(pin(np.stack(xs)) for xs in zip(*pending)))
+                    pending = []
+            for batch in pending:  # the ragged tail: single batches
                 q.put(tuple(pin(a) for a in batch))
         except Exception as e:  # delivered to the consumer below
             err.append(e)

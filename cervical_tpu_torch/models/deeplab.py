@@ -44,13 +44,21 @@ class Dropout(nn.Dropout):
         self.seed = seed
         self._gen: Optional[torch.Generator] = None
 
+    def generator(self, device) -> torch.Generator:
+        """The mask generator on ``device``, seeded on first use there."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self._gen is None or self._gen.device != device:
+            self._gen = torch.Generator(device).manual_seed(self.seed)
+        return self._gen
+
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        if self._gen is None or self._gen.device != x.device:
-            self._gen = torch.Generator(x.device).manual_seed(self.seed)
         keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=self._gen)
+                                              generator=self.generator(
+                                                  x.device))
         return x * keep * (1.0 / (1.0 - self.p))
 
 

@@ -32,6 +32,12 @@ def _const(v: float, like):
     return torch.full((), v, dtype=like.dtype, device=like.device)
 
 
+def _fma(a, b, c):
+    """f32 ``a*b + c`` rounded once, as a fused multiply-add: the product
+    of two f32 values is exact in f64."""
+    return (a.double() * b.double() + c.double()).to(torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Parameter sampling
 # ---------------------------------------------------------------------------
@@ -81,6 +87,31 @@ def sample_augment_params(generator: torch.Generator, batch_size: int,
         "dx_frac": dx_frac, "dy_frac": dy_frac, "blur": blur,
         "angle": angle, "gains": gains,
     }
+
+
+# the columns of a parameter row (params_to_rows): one f32 per image each,
+# the gains last
+PARAM_COLUMNS = ("ar_jitter", "scale", "flip", "dx_frac", "dy_frac", "blur",
+                 "angle")
+NUM_PARAM_COLUMNS = len(PARAM_COLUMNS) + 3
+
+
+def params_to_rows(params) -> torch.Tensor:
+    """A parameter dict of (..., B) tensors ((..., B, 3) gains) -> one
+    (..., B, 10) float32 tensor, so a step's (or K steps') parameters
+    upload in one copy.  Exact: every value is an f32 or a 0/1 flag."""
+    cols = [params[k].to(torch.float32)[..., None] for k in PARAM_COLUMNS]
+    return torch.cat(cols + [params["gains"].to(torch.float32)], dim=-1)
+
+
+def rows_to_params(rows) -> dict:
+    """The inverse of :func:`params_to_rows` (views and two compares, on
+    the rows' device)."""
+    p = {k: rows[..., i] for i, k in enumerate(PARAM_COLUMNS)}
+    p["flip"] = p["flip"] > 0
+    p["blur"] = p["blur"] > 0
+    p["gains"] = rows[..., len(PARAM_COLUMNS):]
+    return p
 
 
 def letterbox_params_like(batch_size: int, src_hw, dst_hw, device=None):
@@ -330,3 +361,81 @@ def augment_batch(images, labels, params, dst_hw: Tuple[int, int],
     if not letterbox:
         img = hsv_jitter_batched(img, params["gains"])
     return img, lbl
+
+
+# ---------------------------------------------------------------------------
+# The einsum backend's photometric pieces (ops/warp_xla.py)
+# ---------------------------------------------------------------------------
+
+def hsv_jitter_batched_fast(rgb, gains, scale: float = 1.0):
+    """The closed form of :func:`hsv_jitter_batched` that the einsum backend
+    runs: the same cv2-LUT quantization, the RGB reconstruction as
+    ``ch(n) = v' - c * clip(min(k, 4 - k), 0, 1)`` with ``k = (n + h'/30)
+    mod 6`` and n = 5/3/1 for R/G/B, each channel scaled by ``scale`` and
+    cast to bf16 before the stack.  (B, H, W, 3) with (B, 3) gains -> bf16
+    in ``[0, 255*scale]``.
+
+    The hue keeps the division order ``60*(x)/safe``: a hoisted reciprocal
+    rounds differently in f32, and the integer hue quantization turns a
+    half-count flip into a 2-degree hue step.  The products with 1/30 and
+    1/255 are the f32 reciprocals, as in the JAX function; ``n + h'/30``
+    and ``v - c*t`` are fused multiply-adds, as XLA compiles them (each
+    unfused form differs from the JAX function on ~1e-3 of the elements)."""
+    x = rgb.to(torch.float32)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    h, s, v = _rgb_to_hsv(r, g, b)
+    gs = [gains[:, k][:, None, None].to(torch.float32) for k in range(3)]
+    h, s, v = _lut_gains(h, s, v, *gs)
+    inv30 = _const(1.0 / 30.0, h)  # h/30 == (2h)/60, the sector coordinate
+    c = v * (s * _const(1.0 / 255.0, s))
+    sc = _const(scale, v)
+
+    def ch(n):
+        k = _mod(_fma(h, inv30, torch.full_like(h, n)), 6.0)
+        t = torch.clamp(torch.minimum(k, 4.0 - k), 0.0, 1.0)
+        out = torch.clamp(_fma(-c, t, v), 0.0, 255.0)
+        return (out * sc).to(torch.bfloat16)
+
+    return torch.stack([ch(5.0), ch(3.0), ch(1.0)], dim=-1)
+
+
+def _blur_matrix_np(size: int):
+    """(size, size) banded matrix of the 5-tap binomial with REFLECT_101
+    borders: ``m @ x`` blurs along ``x``'s first axis."""
+    import numpy as np
+    m = np.zeros((size, size), np.float32)
+    for o in range(size):
+        for t, k in enumerate(_GAUSS5):
+            i = o + t - 2
+            if i < 0:
+                i = -i
+            if i >= size:
+                i = 2 * size - 2 - i
+            m[o, i] += k
+    return m
+
+
+_BLUR_MATRICES: dict = {}
+
+
+def _blur_matrix(size: int, dtype, device):
+    """:func:`_blur_matrix_np` as a tensor on ``device``, uploaded once per
+    (size, dtype, device): a train step captured in a CUDA graph may make
+    no host-to-card copy, so the first (warm-up) call fills the cache."""
+    key = (size, dtype, str(torch.device(device)))
+    m = _BLUR_MATRICES.get(key)
+    if m is None:
+        m = torch.from_numpy(_blur_matrix_np(size)).to(device, dtype)
+        _BLUR_MATRICES[key] = m
+    return m
+
+
+def gaussian_blur_einsum(images):
+    """The separable 5x5 binomial blur (REFLECT_101) as two einsums against
+    banded matrices, in ``images``' dtype (B, H, W, C): each output is a
+    5-tap convex combination, so bf16 keeps it within one count."""
+    h, w = images.shape[1], images.shape[2]
+    mh = _blur_matrix(h, images.dtype, images.device)
+    mw = _blur_matrix(w, images.dtype, images.device)
+    x = torch.einsum("oi,biwc->bowc", mh, images)
+    return torch.einsum("pw,bhwc->bhpc", mw, x)

@@ -46,8 +46,8 @@ from typing import Tuple
 import torch
 
 from cervical_tpu_torch.ops import _build
-from cervical_tpu_torch.ops.augment import (_const, _hsv_to_rgb, _lut_gains,
-                                            _mod, _paste_offsets,
+from cervical_tpu_torch.ops.augment import (_const, _fma, _hsv_to_rgb,
+                                            _lut_gains, _mod, _paste_offsets,
                                             _resized_dims, _rgb_to_hsv)
 
 SOURCE = _build.CSRC_DIR / "warp.cu"
@@ -114,12 +114,6 @@ def make_warp_params(params, src_hw, dst_hw, letterbox: bool = False,
 
 def _bf16(x):
     return x.to(torch.bfloat16).to(torch.float32)
-
-
-def _fma(a, b, c):
-    """f32 ``a*b + c`` rounded once, as a fused multiply-add: the product
-    of two f32 values is exact in f64."""
-    return (a.double() * b.double() + c.double()).to(torch.float32)
 
 
 def _taps(a, b, out_size: int, in_size: int, nearest: bool):
@@ -599,6 +593,11 @@ def augment_batch_kernels(images, labels, params, dst_hw: Tuple[int, int],
     full = torch.cat([wp, params["gains"].to(wp.device, torch.float32),
                       params["blur"].to(wp.device, torch.float32)[:, None]], 1)
     if dev.type == "cuda" and full.device.type == "cpu":
+        if torch.cuda.is_current_stream_capturing():
+            # a graph would replay the copy from a host buffer long freed
+            raise RuntimeError("augment_batch_kernels: parameters on the "
+                               "host while a CUDA graph captures; stage "
+                               "them on the card before the capture")
         # one pinned, non-blocking upload: a pageable copy would make the
         # host wait for the card to drain before every step
         full = full.pin_memory().to(dev, non_blocking=True)

@@ -3,8 +3,9 @@ steps, the host-fed epoch and the two-phase ``fit`` loop with checkpoints,
 callbacks and a graceful stop — port of ``cervical_tpu/train/seg_trainer.py``
 (reference: ``Segmentation/deeplabv3+/train.py`` + ``utils/utils_fit.py``).
 
-One train step: uint8 batch -> augmentation on the card (the K1-K3 kernels
-of ``ops/warp.py``) -> DeepLab forward in train mode (bf16 convs, fp32
+One train step: uint8 batch -> augmentation on the card (the einsum
+backend of ``ops/warp_xla.py``, the default, or the K1-K3 kernels of
+``ops/warp.py``) -> DeepLab forward in train mode (bf16 convs, fp32
 BatchNorm on batch statistics) -> the class-major loss bundle (focal or CE
 + dice, f-score, the x4 logits upsample inside) -> backward -> Adam (or
 Nesterov SGD) with coupled L2 on separate backbone and head optimizers.
@@ -12,9 +13,12 @@ In the freeze phase the backbone runs without autograd and its optimizer
 does not step: its params and its Adam state stay bit-identical, while its
 BatchNorm running stats still update (train.py:447-452).
 
-Not ported yet: the device-resident and scanned epochs (``fit`` feeds a
-:class:`~cervical_tpu_torch.data.voc.BatchLoader`) and the einsum
-augmentation backend.
+``steps_per_call`` K > 1 groups K batches into one K-step call (the JAX
+package's ``lax.scan`` program); on the card that call is a replayed CUDA
+graph (``train/graphs.py``), on the CPU the same steps run eagerly.  With
+``device_resident`` the epoch reads its batches from a copy of the dataset
+on the card (``data/resident.py``) and only index vectors, parameter rows
+and the LR cross the host link.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from cervical_tpu_torch.metrics import confusion_matrix, summarize_hist
 from cervical_tpu_torch.models.deeplab import DeepLab
 from cervical_tpu_torch.ops import augment as aug_ops
 from cervical_tpu_torch.train import schedules
+from cervical_tpu_torch.train.graphs import GraphedCall
 
 
 def _dtype(cfg: SegTrainConfig) -> torch.dtype:
@@ -94,16 +99,56 @@ def _split_params(model: nn.Module):
     return backbone, head
 
 
-def make_optimizer(cfg: SegTrainConfig, params) -> torch.optim.Optimizer:
+class NesterovSGD(torch.optim.SGD):
+    """torch's Nesterov SGD that also takes its LR as a 0-dim device
+    tensor: then it runs torch's own foreach update with the LR as a
+    tensor operand (the form ``torch.optim.SGD`` takes under
+    ``torch.compile``), which reads the LR on the card and so can be
+    captured in a CUDA graph.  A float LR takes torch's path unchanged."""
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if not any(torch.is_tensor(g["lr"]) for g in self.param_groups):
+            return super().step(closure)
+        for g in self.param_groups:
+            params = [p for p in g["params"] if p.grad is not None]
+            if not params:
+                continue
+            grads = [p.grad for p in params]
+            if g["weight_decay"]:
+                grads = torch._foreach_add(grads, params,
+                                           alpha=g["weight_decay"])
+            else:
+                grads = [d.clone() for d in grads]
+            m = g["momentum"]
+            bufs = []
+            for p, d in zip(params, grads):
+                st = self.state[p]
+                if st.get("momentum_buffer") is None:
+                    st["momentum_buffer"] = d.clone()
+                else:
+                    st["momentum_buffer"].mul_(m).add_(d)
+                bufs.append(st["momentum_buffer"])
+            torch._foreach_add_(grads, bufs, alpha=m)
+            torch._foreach_add_(params, torch._foreach_mul(grads, -g["lr"]))
+
+
+def make_optimizer(cfg: SegTrainConfig, params,
+                   capturable: bool = False) -> torch.optim.Optimizer:
     """Adam or Nesterov SGD; the LR is set per step.  torch's
     ``weight_decay`` is coupled L2 (added to the gradient before the
     moments), which is what the JAX package's ``add_decayed_weights``
-    chain computes."""
+    chain computes.  On the card the trainer gives the LR as a 0-dim
+    device tensor, so a step can be captured in a CUDA graph: Adam with
+    ``capturable`` (CUDA params) keeps its step count on the card too, and
+    :class:`NesterovSGD` reads the tensor LR there.  Eager steps on the card
+    take the same path, so a replayed step equals an eager one."""
     if cfg.optimizer_type == "adam":
         return torch.optim.Adam(params, lr=0.0, betas=(cfg.momentum, 0.999),
-                                eps=1e-8, weight_decay=cfg.weight_decay)
-    return torch.optim.SGD(params, lr=0.0, momentum=cfg.momentum,
-                           nesterov=True, weight_decay=cfg.weight_decay)
+                                eps=1e-8, weight_decay=cfg.weight_decay,
+                                capturable=capturable)
+    return NesterovSGD(params, lr=0.0, momentum=cfg.momentum, nesterov=True,
+                       weight_decay=cfg.weight_decay)
 
 
 def load_pretrained(cfg: SegTrainConfig, model: nn.Module, log=print):
@@ -135,8 +180,9 @@ def create_state(cfg: SegTrainConfig, seed: Optional[int] = None,
     if device.type == "cuda":
         model.to(memory_format=torch.channels_last)
     backbone, head = _split_params(model)
-    return TrainState(model, {"backbone": make_optimizer(cfg, backbone),
-                              "head": make_optimizer(cfg, head)})
+    cap = device.type == "cuda"
+    return TrainState(model, {"backbone": make_optimizer(cfg, backbone, cap),
+                              "head": make_optimizer(cfg, head, cap)})
 
 
 @functools.lru_cache(maxsize=8)
@@ -162,23 +208,33 @@ def seg_loss_bundle_fn(cfg: SegTrainConfig, logits, labels,
 def make_train_aug_fn(cfg: SegTrainConfig):
     """The train-time augmentation ``(images_u8, labels_u8, params) ->
     (images (B, H, W, 3) bf16 in [0, 1], labels uint8)`` of
-    ``cfg.data.aug_backend``: "pallas" is the K1-K3 kernel path
-    (``ops.warp.augment_batch_kernels``, exact 3-shear, per-image rotation
-    and blur)."""
-    from cervical_tpu_torch.ops.warp import augment_batch_kernels
+    ``cfg.data.aug_backend``:
+
+    * "einsum" (the default): ``ops.warp_xla.augment_batch_einsum``,
+      rotation on the first and blur on the last ``max(1, B // 4)`` images
+      (the step's sampler draws them there), ``cfg.data.two_shear``;
+    * "pallas": the K1-K3 kernel path (``ops.warp.augment_batch_kernels``,
+      the JAX package's name), exact 3-shear, rotation and blur per
+      image."""
     hw = tuple(cfg.data.input_shape)
     backend = cfg.data.aug_backend
     if backend == "einsum":
-        raise NotImplementedError(
-            "aug_backend='einsum' is not ported yet (ROADMAP: the einsum "
-            "backend's slice); set data.aug_backend='pallas' for the K1-K3 "
-            "kernels")
-    if backend != "pallas":
+        from cervical_tpu_torch.ops.warp_xla import augment_batch_einsum
+
+        def aug(images, labels, params):
+            cap = max(1, images.shape[0] // 4)
+            return augment_batch_einsum(images, labels, params, hw,
+                                        rotate_capacity=cap,
+                                        blur_capacity=cap,
+                                        two_shear=cfg.data.two_shear)
+    elif backend == "pallas":
+        from cervical_tpu_torch.ops.warp import augment_batch_kernels
+
+        def aug(images, labels, params):
+            return augment_batch_kernels(images, labels, params, hw)
+    else:
         raise ValueError(f"unknown aug_backend {backend!r} "
                          "(expected 'einsum' or 'pallas')")
-
-    def aug(images, labels, params):
-        return augment_batch_kernels(images, labels, params, hw)
     return aug
 
 
@@ -195,17 +251,31 @@ def _sample_step_aug_params(cfg: SegTrainConfig, generator: torch.Generator,
         rotate_prefix=cap, blur_suffix=cap)
 
 
-def make_train_step(cfg: SegTrainConfig, frozen: bool):
-    """``step(state, images_u8 (B,H,W,3), labels_u8 (B,H,W), aug_params,
-    lr) -> metrics``: one optimizer step in place on ``state``.  The
-    metrics are unsynced 0-dim tensors ``loss``, ``main_loss``,
-    ``f_score``."""
-    aug_fn = make_train_aug_fn(cfg)
+def _check_aug_cfg(cfg: SegTrainConfig):
+    """``aug_pre_batch`` needs the pallas backend: its per-image rotation
+    and blur make the merged batch equal the per-step path, where the
+    einsum backend's prefix and suffix cannot describe K stacked
+    sub-batches.  Every train-step factory checks, so a wrong config fails
+    when the step is built."""
+    if cfg.data.aug_pre_batch and cfg.data.aug_backend != "pallas":
+        raise ValueError("aug_pre_batch requires aug_backend='pallas'")
+
+
+def _make_train_body(cfg: SegTrainConfig, frozen: bool,
+                     pre_augmented: bool = False):
+    """``step(state, images, labels, aug_params, lr) -> metrics``: one
+    optimizer step in place on ``state``.  The metrics are unsynced 0-dim
+    tensors ``loss``, ``main_loss``, ``f_score``.  ``lr`` is a float, or on
+    the card a 0-dim device tensor (:func:`make_optimizer`).  ``pre_augmented``:
+    the batch arrives augmented (bf16 [0, 1] images, uint8 labels) and
+    ``aug_params`` is ignored."""
+    aug_fn = None if pre_augmented else make_train_aug_fn(cfg)
     nc = cfg.data.num_classes
     dt = _dtype(cfg)
 
-    def step(state: TrainState, images, labels, aug_params, lr: float):
-        images, labels = aug_fn(images, labels, aug_params)
+    def step(state: TrainState, images, labels, aug_params, lr):
+        if not pre_augmented:
+            images, labels = aug_fn(images, labels, aug_params)
         images = images.to(dt)
         labels = torch.clamp(labels, max=nc)
         model = state.model
@@ -231,6 +301,88 @@ def make_train_step(cfg: SegTrainConfig, frozen: bool):
                 "f_score": fs.detach()}
 
     return step
+
+
+def make_train_step(cfg: SegTrainConfig, frozen: bool):
+    """``step(state, images_u8 (B,H,W,3), labels_u8 (B,H,W), aug_params,
+    lr) -> metrics``: one optimizer step in place on ``state``
+    (:func:`_make_train_body`)."""
+    _check_aug_cfg(cfg)
+    return _make_train_body(cfg, frozen)
+
+
+def _stack(metrics):
+    return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
+
+
+def make_train_step_scan(cfg: SegTrainConfig, frozen: bool, k: int):
+    """``scan(state, images (K,B,H,W,3) u8, labels (K,B,H,W) u8, rows
+    (K,B,10), lr) -> metrics`` of shape (K,): K optimizer steps, the
+    port's counterpart of the JAX package's ``make_train_step_scan``.
+    ``rows`` are K steps' augmentation parameters
+    (``ops.augment.params_to_rows``).
+
+    ``cfg.data.aug_pre_batch`` (pallas only): augment the K sub-batches as
+    one (K*B) batch first, then run the K steps; equal to the per-step
+    path bit for bit, since the kernels rotate and blur per image."""
+    _check_aug_cfg(cfg)
+    if cfg.data.aug_pre_batch and k > 1:
+        body = _make_train_body(cfg, frozen, pre_augmented=True)
+        aug_fn = make_train_aug_fn(cfg)
+
+        def scan(state, images, labels, rows, lr):
+            b = images.shape[1]
+
+            def flat(a):
+                return a.reshape((k * b,) + a.shape[2:])
+
+            ia, la = aug_fn(flat(images), flat(labels),
+                            aug_ops.rows_to_params(flat(rows)))
+            ia = ia.reshape((k, b) + ia.shape[1:])
+            la = la.reshape((k, b) + la.shape[1:])
+            return _stack([body(state, ia[i], la[i], None, lr)
+                           for i in range(k)])
+        return scan
+
+    body = _make_train_body(cfg, frozen)
+
+    def scan(state, images, labels, rows, lr):
+        return _stack([body(state, images[i], labels[i],
+                            aug_ops.rows_to_params(rows[i]), lr)
+                       for i in range(k)])
+    return scan
+
+
+def _rows_of(idx, i: int, batch: int, gather: bool):
+    """Call ``i``'s image rows of a resident set: ``idx`` (K, B) row
+    indices (``gather``), or (K,) batch indices read as ``[j*B, (j+1)*B)``."""
+    if gather:
+        return idx[i]
+    return idx[i] * batch + torch.arange(batch, device=idx.device)
+
+
+def make_train_step_scan_resident(cfg: SegTrainConfig, frozen: bool, k: int,
+                                  batch: int, gather: bool = False):
+    """``scan(state, images (N,H,W,3), labels (N,H,W), idx, rows, lr) ->
+    metrics (K,)``: K steps reading their batches from a device-resident
+    set (``data.resident.ResidentSegData``).  ``gather=False``: ``idx`` is
+    (K,) batch indices; ``gather=True`` (``resident_shuffle="gather"``):
+    (K, B) image row indices, a per-epoch reshuffle with no data motion."""
+    _check_aug_cfg(cfg)
+    if cfg.data.aug_pre_batch:
+        raise ValueError("aug_pre_batch is not supported on the resident "
+                         "path")
+    body = _make_train_body(cfg, frozen)
+
+    def scan(state, images, labels, idx, rows, lr):
+        out = []
+        for i in range(k):
+            r = _rows_of(idx, i, batch, gather)
+            out.append(body(state, images.index_select(0, r),
+                            labels.index_select(0, r),
+                            aug_ops.rows_to_params(rows[i]), lr))
+        return _stack(out)
+    return scan
 
 
 def make_eval_step(cfg: SegTrainConfig):
@@ -267,6 +419,51 @@ def make_eval_step(cfg: SegTrainConfig):
     return step
 
 
+def make_eval_step_scan_resident(cfg: SegTrainConfig, k: int, batch: int):
+    """``scan(state, images, labels, weights, idx (K,)) -> {"loss",
+    "f_score", "hist"}``: K eval batches of a device-resident set, their
+    loss, f-score and (nc, nc) confusion matrix summed on the card."""
+    step = make_eval_step(cfg)
+
+    def scan(state, images, labels, weights, idx):
+        loss = fs = hist = 0
+        for i in range(k):
+            r = _rows_of(idx, i, batch, False)
+            m = step(state, images.index_select(0, r),
+                     labels.index_select(0, r), weights.index_select(0, r))
+            loss, fs, hist = loss + m["loss"], fs + m["f_score"], \
+                hist + m["hist"]
+        return {"loss": loss, "f_score": fs, "hist": hist}
+    return scan
+
+
+class _Drain:
+    """A window of unsynced metrics: :meth:`add` queues a call's metrics
+    (0-dim, or (K,) from a K-step call) and syncs the oldest once more than
+    ``depth - 1`` wait; the sums count every step (or ``count`` batches
+    for a summed eval call)."""
+
+    def __init__(self, depth: int):
+        self.depth = depth
+        self.pending = []
+        self.sums = {"loss": 0.0, "f_score": 0.0}
+        self.n = 0
+
+    def add(self, m, count: Optional[int] = None):
+        self.pending.append((m, count))
+        self.drain(self.depth - 1)
+
+    def drain(self, limit: int):
+        while len(self.pending) > limit:
+            m, count = self.pending.pop(0)
+            for key in self.sums:
+                self.sums[key] += float(m[key].sum())
+            self.n += m["loss"].numel() if count is None else count
+
+    def mean(self, key: str) -> float:
+        return self.sums[key] / max(self.n, 1)
+
+
 @dataclasses.dataclass
 class EpochResult:
     train_loss: float
@@ -281,8 +478,14 @@ class SegTrainer:
 
     ``device`` defaults to ``cuda``.  Seeds: ``cfg.seed`` (or ``seed``)
     draws the initial weights; the per-step augmentation parameters come
-    from a host generator seeded ``seed + 1``; the dropouts from their own
+    from a host generator seeded ``seed + 1``, the ``"images"`` resident
+    shuffle from one seeded ``seed + 3``; the dropouts from their own
     generators (``build_model``).
+
+    On the card each K-step call (``steps_per_call``) and each resident
+    eval call is a CUDA graph, captured at its first call per (phase, K,
+    batch, data) and replayed after: one graph of the K steps, as a scan
+    compiles them.
     """
 
     def __init__(self, cfg: SegTrainConfig, seed: Optional[int] = None,
@@ -291,18 +494,22 @@ class SegTrainer:
         self.device = torch.device(device)
         seed = cfg.seed if seed is None else seed
         self.generator = torch.Generator().manual_seed(seed + 1)
+        self.shuffle_generator = torch.Generator().manual_seed(seed + 3)
         self.state = create_state(cfg, seed, self.device)
         self._steps: dict = {}
+        self._graphs: dict = {}
+
+    def _step_fn(self, key, make):
+        if key not in self._steps:
+            self._steps[key] = make()
+        return self._steps[key]
 
     def _train_step(self, frozen: bool):
-        if frozen not in self._steps:
-            self._steps[frozen] = make_train_step(self.cfg, frozen)
-        return self._steps[frozen]
+        return self._step_fn(frozen, lambda: make_train_step(self.cfg,
+                                                             frozen))
 
     def _eval_step(self):
-        if "eval" not in self._steps:
-            self._steps["eval"] = make_eval_step(self.cfg)
-        return self._steps["eval"]
+        return self._step_fn("eval", lambda: make_eval_step(self.cfg))
 
     def lr_schedule(self, batch_size: int, total_epochs: int):
         init_fit, min_fit = schedules.adaptive_seg_lr(
@@ -312,57 +519,179 @@ class SegTrainer:
         return schedules.get_lr_scheduler(self.cfg.lr_decay_type, init_fit,
                                           min_fit, total_epochs)
 
+    def _lr_arg(self, lr: float):
+        """The LR as the step takes it: on the card a 0-dim device tensor
+        (made by a fill, no host copy) that both optimizers read there,
+        elsewhere a float."""
+        if self.device.type == "cuda":
+            return torch.full((), float(lr), device=self.device)
+        return float(lr)
+
+    def _param_rows(self, k: Optional[int], batch: int):
+        """Fresh augmentation parameters for one step (``k=None``, (B, 10))
+        or K steps ((K, B, 10)), drawn in step order from the host
+        generator, pinned for one non-blocking upload on the card."""
+        rows = torch.stack([aug_ops.params_to_rows(_sample_step_aug_params(
+            self.cfg, self.generator, batch)) for _ in range(k or 1)])
+        rows = rows if k else rows[0]
+        return rows.pin_memory() if self.device.type == "cuda" else rows
+
     def train_step(self, images, labels, frozen: bool, lr: float):
         """One step on a batch already on the card, with freshly sampled
-        augmentation parameters; returns the unsynced metrics."""
-        params = _sample_step_aug_params(self.cfg, self.generator,
-                                         images.shape[0])
+        augmentation parameters (one upload); returns the unsynced
+        metrics."""
+        rows = self._param_rows(None, images.shape[0])
+        params = aug_ops.rows_to_params(rows.to(self.device,
+                                                non_blocking=True))
         return self._train_step(frozen)(self.state, images, labels, params,
-                                        lr)
+                                        self._lr_arg(lr))
+
+    def _call_k(self, key, fn, inputs, lr=None):
+        """Run ``fn(state, *inputs, [lr])``, a K-step call over ``inputs``.
+        On the CPU it runs eagerly; on the card it replays the graph of
+        ``key`` (captured now if new)."""
+        extra = () if lr is None else (self._lr_arg(lr),)
+        if self.device.type != "cuda":
+            return fn(self.state, *inputs, *extra)
+        g = self._graphs.get(key)
+        if g is None or g.state is not self.state:
+            state = self.state
+            g = GraphedCall(lambda *xs: fn(state, *xs), state,
+                            list(inputs) + list(extra), self.device)
+            self._graphs[key] = g
+        return g(*inputs, *extra)
+
+    def train_steps(self, images, labels, frozen: bool, lr: float):
+        """K steps on (K, B, ...) batches already on the card, in one call
+        (:func:`make_train_step_scan`); returns unsynced (K,) metrics."""
+        k, b = images.shape[0], images.shape[1]
+        fn = self._step_fn(("scan", frozen, k),
+                           lambda: make_train_step_scan(self.cfg, frozen, k))
+        return self._call_k(("scan", frozen, k, b), fn,
+                            (images, labels, self._param_rows(k, b)), lr)
+
+    def _resident_train(self, data, frozen: bool, idx, lr: float, gather):
+        """One K-step call on the resident set ``data``; ``idx`` a host
+        int64 array, (K,) batch or (K, B) row indices."""
+        k, b = len(idx), data.batch_size
+        idx = torch.from_numpy(np.ascontiguousarray(idx, np.int64))
+        if self.device.type == "cuda":
+            idx = idx.pin_memory()
+        scan = self._step_fn(("scanres", frozen, k, b, gather),
+                             lambda: make_train_step_scan_resident(
+                                 self.cfg, frozen, k, b, gather=gather))
+
+        def fn(st, i, r, lr_):
+            return scan(st, data.images, data.labels, i, r, lr_)
+        key = ("res", frozen, k, b, gather, data.images.data_ptr(),
+               tuple(data.images.shape))
+        return self._call_k(key, fn, (idx, self._param_rows(k, b)), lr)
+
+    def _resident_eval(self, data, pos: int, k: int):
+        """The summed metrics of resident eval batches ``pos .. pos+k-1``."""
+        b = data.batch_size
+        idx = torch.arange(pos, pos + k, device=self.device)
+        scan = self._step_fn(("evalres", k, b), lambda:
+                             make_eval_step_scan_resident(self.cfg, k, b))
+
+        def fn(st, i):
+            return scan(st, data.images, data.labels, data.weights, i)
+        key = ("evalres", k, b, data.images.data_ptr(),
+               tuple(data.images.shape))
+        return self._call_k(key, fn, (idx,))
 
     def run_epoch(self, train_loader, val_loader, epoch: int, frozen: bool,
                   lr: float) -> EpochResult:
         """One training pass over ``train_loader`` and one validation pass
-        over ``val_loader``.  Steps are dispatched ahead of reading their
-        metrics: at most ``cfg.pipeline_depth`` steps' metrics stay unsynced
-        (the reference's per-step ``.item()`` would stall the card).  Ragged
-        validation batches are padded with weight-0 rows to the loader's
-        batch size, so every eval batch has one shape and counts exactly."""
+        over ``val_loader``.  ``steps_per_call`` K > 1 groups K batches into
+        one K-step call (:meth:`train_steps`); a ragged tail of fewer than
+        K batches runs as single steps.  Calls are dispatched ahead of
+        reading their metrics: at most ``cfg.pipeline_depth`` calls' metrics
+        stay unsynced (the reference's per-step ``.item()`` would stall the
+        card).  Ragged validation batches are padded with weight-0 rows to
+        the loader's batch size, so every eval batch has one shape and
+        counts exactly.  Resident loaders (``fit`` with ``device_resident``)
+        go to :meth:`run_epoch_resident`."""
+        from cervical_tpu_torch.data.resident import ResidentSegData
+        if isinstance(train_loader, ResidentSegData):
+            if not isinstance(val_loader, ResidentSegData):
+                raise ValueError("a resident train set needs a resident "
+                                 "val set (fit's device_resident loaders)")
+            return self.run_epoch_resident(train_loader, val_loader, epoch,
+                                           frozen, lr)
         del epoch  # the loaders shuffle per epoch themselves
         t0 = time.time()
         depth = max(1, self.cfg.pipeline_depth)
-        tl, tf, n = 0.0, 0.0, 0
-        pending = []
-        for images, labels in device_prefetch(train_loader, self.device):
-            pending.append(self.train_step(images, labels, frozen, lr))
-            while len(pending) >= depth:
-                m = pending.pop(0)
-                tl += m["loss"].item()
-                tf += m["f_score"].item()
-                n += 1
-        for m in pending:
-            tl += m["loss"].item()
-            tf += m["f_score"].item()
-            n += 1
+        k = max(1, self.cfg.steps_per_call)
+        train = _Drain(depth)
+        for images, labels in device_prefetch(train_loader, self.device,
+                                              group=k):
+            if images.ndim == 5:
+                train.add(self.train_steps(images, labels, frozen, lr))
+            else:
+                train.add(self.train_step(images, labels, frozen, lr))
+        train.drain(0)
 
-        vl, vf, vn = 0.0, 0.0, 0
+        val = _Drain(depth)
         eval_fn = self._eval_step()
-        epending = []
         divisor = getattr(val_loader, "batch_size", 1)
         for images, labels, w in device_prefetch(
                 val_loader, self.device, with_weights=True, divisor=divisor):
-            epending.append(eval_fn(self.state, images, labels, w))
-            while len(epending) >= depth:
-                m = epending.pop(0)
-                vl += m["loss"].item()
-                vf += m["f_score"].item()
-                vn += 1
-        for m in epending:
-            vl += m["loss"].item()
-            vf += m["f_score"].item()
-            vn += 1
-        return EpochResult(tl / max(n, 1), vl / max(vn, 1), tf / max(n, 1),
-                           vf / max(vn, 1), time.time() - t0)
+            val.add(eval_fn(self.state, images, labels, w))
+        val.drain(0)
+        return EpochResult(train.mean("loss"), val.mean("loss"),
+                           train.mean("f_score"), val.mean("f_score"),
+                           time.time() - t0)
+
+    def run_epoch_resident(self, train_rs, val_rs, epoch: int, frozen: bool,
+                           lr: float) -> EpochResult:
+        """One epoch fed from device-resident sets: the per-epoch shuffle of
+        ``cfg.resident_shuffle``, then K-step calls whose host inputs are an
+        index vector, K steps' parameter rows and the LR; the val pass
+        sums K eval batches per call.  A ragged tail runs as a shorter
+        call.
+
+        Shuffles: "gather" (default) draws a permutation of every train
+        image from ``default_rng(seed * 1_000_003 + epoch)`` and each step
+        gathers its rows; "images" permutes the set on the card from
+        :attr:`shuffle_generator`; "chunks" permutes the batch order from
+        ``default_rng(seed * 100_003 + epoch)``; "none" keeps the order.
+        The host permutations are the JAX package's, row for row."""
+        t0 = time.time()
+        cfg = self.cfg
+        k = max(1, cfg.steps_per_call)
+        c, b = train_rs.num_chunks, train_rs.batch_size
+        mode = cfg.resident_shuffle
+        order = np.arange(c)
+        rows = None
+        if mode == "gather":
+            rows = np.random.default_rng(
+                cfg.seed * 1_000_003 + epoch).permutation(c * b).reshape(c, b)
+        elif mode == "images":
+            train_rs.shuffle_(self.shuffle_generator)
+        elif mode == "chunks":
+            order = np.random.default_rng(
+                cfg.seed * 100_003 + epoch).permutation(c)
+        elif mode != "none":
+            raise ValueError(f"unknown resident_shuffle {mode!r}")
+
+        depth = max(1, cfg.pipeline_depth)
+        train = _Drain(depth)
+        for pos in range(0, c, k):
+            idx = (rows if rows is not None else order)[pos:pos + k]
+            train.add(self._resident_train(train_rs, frozen, idx, lr,
+                                           rows is not None))
+        train.drain(0)
+
+        val = _Drain(depth)
+        cv = val_rs.num_chunks
+        for pos in range(0, cv, k):
+            kk = min(k, cv - pos)
+            val.add(self._resident_eval(val_rs, pos, kk), count=kk)
+        val.drain(0)
+        return EpochResult(train.mean("loss"), val.mean("loss"),
+                           train.mean("f_score"), val.mean("f_score"),
+                           time.time() - t0)
 
     def fit(self, train_ds, val_ds, total_epochs: Optional[int] = None,
             loader_factory=None, log=print) -> Dict:
@@ -372,8 +701,11 @@ class SegTrainer:
         :class:`~cervical_tpu_torch.data.voc.VOCSegDataset`-like;
         ``loader_factory(ds, batch_size, shuffle)`` defaults to a
         ``BatchLoader`` that drops the ragged tail of a shuffled (train)
-        set.  Returns the history ``{"train_loss", "val_loss", "miou"}``
-        (+ ``"predictor_miou"`` with ``cfg.predictor_eval``).
+        set; with ``cfg.device_resident`` it uploads each dataset to the
+        card once (``ResidentSegData``, train tail dropped, eval tail
+        padded) and rechunks it at the freeze -> unfreeze switch.  Returns
+        the history ``{"train_loss", "val_loss", "miou"}`` (+
+        ``"predictor_miou"`` with ``cfg.predictor_eval``).
 
         SIGTERM and SIGINT (handlers installed only from the main thread,
         restored on return) and :meth:`request_stop` ask for a graceful
@@ -388,7 +720,20 @@ class SegTrainer:
 
         cfg = self.cfg
         total_epochs = total_epochs or cfg.unfreeze_epoch
-        if loader_factory is None:
+        if loader_factory is None and cfg.device_resident:
+            from cervical_tpu_torch.data.resident import ResidentSegData
+            uploaded = {}
+
+            def loader_factory(ds, bs, shuffle):
+                cur = uploaded.get(id(ds))
+                if cur is None:
+                    cur = ResidentSegData.from_dataset(
+                        ds, bs, self.device, train=shuffle, log=log)
+                elif cur.batch_size != bs:
+                    cur = cur.rechunk(bs)
+                uploaded[id(ds)] = cur
+                return cur
+        elif loader_factory is None:
             def loader_factory(ds, bs, shuffle):
                 return BatchLoader(ds, bs, shuffle=shuffle, seed=cfg.seed,
                                    drop_last=shuffle)
@@ -479,11 +824,19 @@ class SegTrainer:
         """Accumulate the confusion matrix over ``loader`` on the card and
         summarize (EvalCallback, utils/callbacks.py:153-200).  Ragged
         batches are padded with weight-0 rows, so each real pixel counts
-        once."""
+        once.  A resident set is read by K-batch calls that sum the matrix
+        on the card."""
+        from cervical_tpu_torch.data.resident import ResidentSegData
         nc = num_classes or self.cfg.data.num_classes
         if nc != self.cfg.data.num_classes:
             raise ValueError(f"the eval step counts "
                              f"{self.cfg.data.num_classes} classes, not {nc}")
+        if isinstance(loader, ResidentSegData):
+            k = max(1, self.cfg.steps_per_call)
+            cv = loader.num_chunks
+            hist = sum(self._resident_eval(loader, pos, min(k, cv - pos))
+                       ["hist"] for pos in range(0, cv, k))
+            return summarize_hist(hist.cpu().numpy().astype(np.int64))
         eval_fn = self._eval_step()
         hist = torch.zeros((nc, nc), dtype=torch.int64, device=self.device)
         divisor = getattr(loader, "batch_size", 1)

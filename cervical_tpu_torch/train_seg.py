@@ -6,7 +6,7 @@ Usage:
         [--key value ...]
 e.g.
     python -m cervical_tpu_torch.train_seg --data.dataset_path VOCdevkit \
-        --data.aug_backend pallas --unfreeze_epoch 50 --save_dir logs
+        --unfreeze_epoch 50 --save_dir logs
 
 ``--key value`` pairs override the config (``--data.input_shape '[64,64]'``).
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels' plain

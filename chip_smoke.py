@@ -48,7 +48,27 @@
    identical, the eval confusion matrix must count every val pixel once.
    Then times the train step (ms/step, images/s, after warm-up) and reads
    the card's idle share over profiled steps.
-6. Drives the fit path at the same width on a synthetic VOC of 24 train and
+6. Drives the training path on the JAX package's defaults
+   (``defaults`` phase): ``SegTrainer`` on an unmodified ``SegTrainConfig()``
+   (the einsum augmentation, ``steps_per_call=8``, batch 8 unfrozen and 16
+   frozen, 512²) on 136 synthetic train and 16 val images: an unfrozen
+   epoch (two 8-step calls replayed as CUDA graphs and one single step),
+   a frozen one (one 8-step call); each batch runs once, the frozen epoch
+   leaves the backbone's params and Adam state bit-identical.  The einsum
+   augmentation at (8, 512, 512, 3) on the card against the CPU (labels
+   equal, images within one bf16 step on <= 1e-3 of elements), timed
+   beside ``augment_batch_kernels``.  8 replayed steps against 8 eager
+   steps from a trainer of the same seed: losses and states bit for bit
+   (else the JAX package's scan-test limits, with a second eager run to
+   tell nondeterminism from a fault).  The kernel backend with
+   ``aug_pre_batch``: one 8-step call against 8 per-step eager steps, bit
+   for bit, K1-K3 counted once per call there and once per step here.  A
+   resident ``"gather"`` epoch: each train image read once, the resident
+   ``evaluate_miou`` matrix equal to the host-fed one and summing to 16 x
+   512².  Readings beside the card's name and power limit: the 8-step
+   graph call, the resident call, and the train phase's eager step:
+   ms/step, images/s and the idle share.
+7. Drives the fit path at the same width on a synthetic VOC of 24 train and
    8 val 512² images written to a temporary directory: ``SegTrainer.fit``
    with one frozen epoch of 3, a checkpoint every epoch, the eval step's
    and the predictor's mIoU at epoch 2 (K4 in the eval passes).  Counts are
@@ -61,7 +81,7 @@
    cervical_tpu_torch.train_seg`` on the same data, sent SIGTERM once
    epoch 1 is logged, must finish epoch 2, checkpoint it and exit 0.
    Prints seconds per epoch and the peak memory.
-7. Prints one ``{"kernels": [...]}`` line (six kernels), then as the last
+8. Prints one ``{"kernels": [...]}`` line (six kernels), then as the last
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, if any check fails, if there is no
@@ -781,6 +801,362 @@ def train_phase(torch, W, g, input_shape=(512, 512), n_train=32, n_val=12,
           + ("not measured (no device events)" if idle is None
              else f"{idle:.4f}"))
     print("train " + json.dumps(res))
+    return res
+
+
+def states_equal(torch, a, b):
+    """(model params and buffers equal, both Adam states equal) of two
+    trainers' states, bit for bit."""
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    model = all(torch.equal(v, sb[k]) for k, v in sa.items())
+
+    def adam(x, y):
+        xs, ys = x.state_dict()["state"], y.state_dict()["state"]
+        return xs.keys() == ys.keys() and all(
+            torch.equal(torch.as_tensor(xs[i][k]), torch.as_tensor(ys[i][k]))
+            for i in xs for k in xs[i])
+    return model, all(adam(a.opt_state[g], b.opt_state[g])
+                      for g in ("backbone", "head"))
+
+
+def jax_scan_limits(torch, losses_a, losses_b, a, b):
+    """The limits of the JAX package's test_train_step_scan_matches_sequential
+    (tests/test_seg_training.py:325): the first loss to rtol 1e-4, later
+    ones to 1e-2; params within 5e-5 on > 99% of elements, all within
+    5e-3.  Returns (within, readings)."""
+    la = torch.as_tensor(losses_a).double()
+    lb = torch.as_tensor(losses_b).double()
+    rel = ((la - lb).abs() / lb.abs().clamp_min(1e-12)).tolist()
+    sb = b.model.state_dict()
+    d = torch.cat([(v.float() - sb[k].float()).abs().flatten() for k, v in
+                   a.model.state_dict().items() if v.is_floating_point()])
+    share = float((d < 5e-5).float().mean())
+    ok = rel[0] <= 1e-4 and max(rel) <= 1e-2 and share > 0.99 and \
+        float(d.max()) < 5e-3
+    return ok, {"loss_rel": rel, "param_share_within_5e-5": share,
+                "param_max_abs": float(d.max())}
+
+
+def timed_steps(torch, prof_cls, DeviceType, run, steps_per_run, runs=3):
+    """(ms per step, images/s factor 1e3/ms, device-busy ms per step, idle
+    share) of ``run()`` (``steps_per_run`` steps each), after one warm-up
+    run: host clock over ``runs`` runs ending in a synchronize, then
+    device-busy time over profiled runs (train_phase's method)."""
+    from torch.profiler import ProfilerActivity
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        run()
+    torch.cuda.synchronize()
+    step_ms = 1e3 * (time.perf_counter() - t0) / (runs * steps_per_run)
+    with prof_cls(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            run()
+        torch.cuda.synchronize()
+    busy = device_busy_ms(prof, DeviceType) / (runs * steps_per_run)
+    return step_ms, busy, (1 - busy / step_ms if busy > 0 else None)
+
+
+def defaults_phase(torch, W, g, card, eager_step=None, input_shape=None,
+                   n_train=136, n_val=16, device="cuda"):
+    """``SegTrainer`` on an unmodified ``SegTrainConfig()`` (the einsum
+    augmentation, 8-step calls as CUDA graphs, batch 8 unfrozen and 16
+    frozen, 512²) on seeded synthetic data, with its checks; see the module
+    docstring.  ``input_shape`` shrinks the images for a rehearsal."""
+    import gc
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    from cervical_tpu_torch.config import SegTrainConfig
+    from cervical_tpu_torch.data.resident import ResidentSegData
+    from cervical_tpu_torch.data.voc import ArraySegDataset, BatchLoader
+    from cervical_tpu_torch.ops import augment as A
+    from cervical_tpu_torch.ops.warp_xla import augment_batch_einsum
+    from cervical_tpu_torch.train.seg_trainer import (SegTrainer,
+                                                      _sample_step_aug_params)
+
+    cfg = SegTrainConfig()
+    check((cfg.data.aug_backend, cfg.steps_per_call, cfg.unfreeze_batch_size,
+           cfg.freeze_batch_size, tuple(cfg.data.input_shape),
+           cfg.device_resident, cfg.resident_shuffle, cfg.data.aug_pre_batch,
+           cfg.data.two_shear) == ("einsum", 8, 8, 16, (512, 512), False,
+                                   "gather", False, False),
+          "SegTrainConfig defaults")
+    if input_shape is not None:
+        cfg.data.input_shape = input_shape
+    h, w = cfg.data.input_shape
+    k, bs = cfg.steps_per_call, cfg.unfreeze_batch_size
+    dev = torch.device(device)
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31, (1,),
+                                                  generator=g)))
+    tr_im = rng.integers(0, 256, (n_train, h, w, 3), dtype=np.uint8)
+    tr_lb = rng.integers(0, 5, (n_train, h, w), dtype=np.uint8)
+    va_im = rng.integers(0, 256, (n_val, h, w, 3), dtype=np.uint8)
+    va_lb = rng.integers(0, 5, (n_val, h, w), dtype=np.uint8)
+    train, val = ArraySegDataset(tr_im, tr_lb), ArraySegDataset(va_im, va_lb)
+    val_loader = BatchLoader(val, cfg.eval_batch_size, shuffle=False,
+                             drop_last=False)
+    res = {"config": f"SegTrainConfig() xception os16 {h}x{w} 5 classes "
+                     f"bf16 adam einsum aug, steps_per_call {k}",
+           "card": card}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the einsum augmentation on the card against the CPU, and timed beside
+    # the kernel chain (K1 -> K3 plus K2) on the same inputs and parameters
+    gen = torch.Generator().manual_seed(5)
+    params = _sample_step_aug_params(cfg, gen, bs)
+    xs, ls = torch.from_numpy(tr_im[:bs]), torch.from_numpy(tr_lb[:bs])
+    cap = max(1, bs // 4)
+    kw = dict(rotate_capacity=cap, blur_capacity=cap)
+    ci, cl = augment_batch_einsum(xs, ls, params, (h, w), **kw)
+    dp = {n: v.to(dev) for n, v in params.items()}
+    xd, ld = xs.to(dev), ls.to(dev)
+    gi, gl = augment_batch_einsum(xd, ld, dp, (h, w), **kw)
+    err, share, ok = one_step_ok(torch, gi.cpu(), ci, max_share=1e-3)
+    check(torch.equal(gl.cpu(), cl), "einsum labels differ card/CPU")
+    check(ok, f"einsum images on the card against the CPU: max {err}, "
+          f"share {share} (limit one bf16 step on 1e-3)")
+    def einsum():
+        return augment_batch_einsum(xd, ld, dp, (h, w), **kw)
+
+    def kernels():
+        return W.augment_batch_kernels(xd, ld, dp, (h, w))
+
+    def graphed(fn):
+        """``fn`` captured in a CUDA graph: its replays time the card's
+        work alone (the einsum call's host time, ~100 small launches,
+        outlasts cuda_ms's spin).  A CPU rehearsal times ``fn`` itself."""
+        if dev.type != "cuda":
+            return fn
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return graph.replay
+
+    def host_ms(fn, n=10):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / n
+
+    launches = dict(W.LAUNCHES)
+    einsum_ms = cuda_ms(torch, graphed(einsum), 20)
+    kernels_ms = cuda_ms(torch, graphed(kernels), 20)
+    W.LAUNCHES.update(launches)  # the captures counted the chain's calls
+    einsum_eager, kernels_eager = host_ms(einsum), host_ms(kernels)
+    res["einsum_aug"] = {"card_vs_cpu_max_abs": err,
+                         "card_vs_cpu_share": share, "ms": einsum_ms,
+                         "kernels_ms": kernels_ms, "eager_ms": einsum_eager,
+                         "kernels_eager_ms": kernels_eager, "batch": bs}
+    print(f"einsum augmentation ({bs},{h},{w},3), caps {cap}: card vs CPU "
+          f"max {err:.3g} on {share:.2e} of elements, labels equal; device "
+          f"{einsum_ms:.4f} ms per call (graph replays) against K1 -> K3 + "
+          f"K2 {kernels_ms:.4f} ms; eager, host clock {einsum_eager:.3f} "
+          f"against {kernels_eager:.3f} ms ({card})")
+    del gi, gl
+    free()
+
+    # the defaults' epochs: 17 batches unfrozen (two 8-step graph calls and
+    # one single step), 8 frozen (one 8-step call)
+    trainer = SegTrainer(cfg, device=device)
+    lr = trainer.lr_schedule(bs, cfg.unfreeze_epoch)(0)
+    epochs = []
+    for frozen in (False, True):
+        b = cfg.freeze_batch_size if frozen else bs
+        loader = BatchLoader(train, b, seed=7 + frozen)
+        model = trainer.state.model
+        snap = {n: p.detach().clone()
+                for n, p in model.backbone.named_parameters()}
+        adam = {id(p): {q: v.clone() for q, v in st.items()} for p, st in
+                trainer.state.opt_state["backbone"].state.items()}
+        step0 = trainer.state.step
+        W.reset_launches()
+        t0 = time.perf_counter()
+        r = trainer.run_epoch(loader, val_loader, int(frozen), frozen, lr)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = trainer.state.step - step0
+        print(f"defaults run_epoch (frozen={frozen}, batch {b}): {steps} "
+              f"steps in {len(loader) // k} {k}-step calls + "
+              f"{len(loader) % k} single, eval of {n_val}, {dt:.3f} s; loss "
+              f"{r.train_loss:.5f} val {r.val_loss:.5f}")
+        check(steps == len(loader) == n_train // b,
+              f"{steps} steps for {len(loader)} batches")
+        check(all(math.isfinite(v) for v in (r.train_loss, r.val_loss,
+                                             r.train_f_score)),
+              f"non-finite epoch metrics {r}")
+        check(sum(W.LAUNCHES.values()) == 0, f"the einsum epoch launched "
+              f"augmentation kernels {W.LAUNCHES}")
+        if frozen:
+            same = all(torch.equal(p, snap[n])
+                       for n, p in model.backbone.named_parameters())
+            same_adam = all(
+                torch.equal(v, adam[id(p)][q]) for p, st in
+                trainer.state.opt_state["backbone"].state.items()
+                for q, v in st.items())
+            check(same and same_adam, "the frozen epoch moved the backbone's "
+                  "params or its Adam state")
+        epochs.append({"frozen": frozen, "batch": b, "steps": steps,
+                       "seconds": dt, "train_loss": r.train_loss,
+                       "val_loss": r.val_loss})
+    res["epochs"] = epochs
+
+    # readings: the 8-step graph call
+    xk = torch.from_numpy(tr_im[:k * bs].reshape(k, bs, h, w, 3)).to(dev)
+    lk = torch.from_numpy(tr_lb[:k * bs].reshape(k, bs, h, w)).to(dev)
+    m, bz, i = timed_steps(torch, profile, DeviceType,
+                           lambda: trainer.train_steps(xk, lk, False, lr), k)
+    res["graph_call"] = {"step_ms": m, "images_per_s": bs * 1e3 / m,
+                         "device_busy_ms_per_step": bz, "idle_share": i}
+    print(f"{k}-step graph call: {m:.3f} ms/step = {bs * 1e3 / m:.1f} "
+          f"images/s, busy {bz:.3f} ms, idle "
+          + ("not measured" if i is None else f"{i:.4f}") + f" ({card})")
+    del trainer
+    free()
+
+    # graph against eager: two trainers from one seed, the same 8 batches
+    # and (through the same generator stream) the same parameters
+    tg, te = SegTrainer(cfg, device=device), SegTrainer(cfg, device=device)
+    mg = tg.train_steps(xk, lk, False, lr)["loss"]
+    me = torch.stack([te.train_step(xk[i], lk[i], False, lr)["loss"]
+                      for i in range(k)])
+    torch.cuda.synchronize()
+    same_model, same_adam = states_equal(torch, tg.state, te.state)
+    bitwise = torch.equal(mg, me) and same_model and same_adam
+    cmp = {"bitwise": bitwise, "steps": (tg.state.step, te.state.step)}
+    if not bitwise:
+        # tell nondeterminism from a graph fault: a second eager run
+        te2 = SegTrainer(cfg, device=device)
+        me2 = torch.stack([te2.train_step(xk[i], lk[i], False, lr)["loss"]
+                           for i in range(k)])
+        cmp["eager_repeats_bitwise"] = bool(torch.equal(me, me2)) and all(
+            states_equal(torch, te.state, te2.state))
+        ok, rd = jax_scan_limits(torch, mg.cpu(), me.cpu(), tg.state,
+                                 te.state)
+        cmp.update(rd)
+        check(ok, f"graph against eager beyond the JAX scan limits: {cmp}")
+        del te2
+    check(tg.state.step == te.state.step == k, f"steps {cmp['steps']}")
+    res["graph_vs_eager"] = cmp
+    print(f"graph against eager, {k} steps: bitwise {bitwise} "
+          + json.dumps({q: v for q, v in cmp.items() if q != "bitwise"}))
+    del tg, te
+    free()
+
+    # pallas with aug_pre_batch: one 8-step call against 8 per-step steps
+    pcfg = SegTrainConfig()
+    pcfg.data.input_shape = (h, w)
+    pcfg.data.aug_backend = "pallas"
+    pre = SegTrainer(dataclass_replace(pcfg, aug_pre_batch=True),
+                     device=device)
+    per = SegTrainer(pcfg, device=device)
+    W.reset_launches()
+    mp = pre.train_steps(xk, lk, False, lr)["loss"]
+    torch.cuda.synchronize()
+    pre_launches = dict(W.LAUNCHES)
+    W.reset_launches()
+    ms_ = torch.stack([per.train_step(xk[i], lk[i], False, lr)["loss"]
+                       for i in range(k)])
+    torch.cuda.synchronize()
+    per_launches = dict(W.LAUNCHES)
+    same_model, same_adam = states_equal(torch, pre.state, per.state)
+    pre_ok = torch.equal(mp, ms_) and same_model and same_adam
+    pcmp = {"bitwise": pre_ok, "launches_pre_batch": pre_launches,
+            "launches_per_step": per_launches}
+    if not pre_ok:
+        ok, rd = jax_scan_limits(torch, mp.cpu(), ms_.cpu(), pre.state,
+                                 per.state)
+        pcmp.update(rd)
+        # bit for bit unless the graph itself differed from eager steps
+        check(ok and not bitwise, f"pre-batched pallas call against the "
+              f"per-step steps (graph against eager bitwise: {bitwise}): "
+              f"{pcmp}")
+    for name in TRAIN_KERNELS:
+        check(pre_launches[name] == 1 and per_launches[name] == k,
+              f"{name}: {pre_launches[name]} launches in the pre-batched "
+              f"call, {per_launches[name]} in {k} steps")
+    res["pallas_pre_batch"] = pcmp
+    print(f"pallas aug_pre_batch {k}-step call against {k} per-step steps: "
+          f"bitwise {pre_ok}; launches {pre_launches} / {per_launches}")
+    del pre, per
+    free()
+
+    # a resident gather epoch: every train image read once; the resident
+    # mIoU matrix equal to the host-fed one
+    rcfg = dataclass_replace(cfg, device_resident=True)
+    rt = SegTrainer(rcfg, device=device)
+    trs = ResidentSegData.from_arrays(tr_im, tr_lb, bs, dev, train=True)
+    vrs = ResidentSegData.from_arrays(va_im, va_lb, cfg.eval_batch_size, dev,
+                                      train=False)
+    seen = []
+    call = rt._resident_train
+
+    def recording(data, frozen, idx, lr_, gather):
+        seen.append(np.asarray(idx).ravel())
+        return call(data, frozen, idx, lr_, gather)
+    rt._resident_train = recording
+    t0 = time.perf_counter()
+    r = rt.run_epoch(trs, vrs, 0, False, lr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    rt._resident_train = call
+    epoch_steps = rt.state.step
+    rows = np.sort(np.concatenate(seen))
+    check(np.array_equal(rows, np.arange(n_train // bs * bs)),
+          "the gather epoch did not read each train image once")
+    check(epoch_steps == n_train // bs and math.isfinite(r.train_loss),
+          f"resident epoch: {epoch_steps} steps, {r}")
+    hist_r = rt.evaluate_miou(vrs)["hist"]
+    hist_h = rt.evaluate_miou(val_loader)["hist"]
+    check(np.array_equal(hist_r, hist_h) and
+          int(hist_r.sum()) == n_val * h * w,
+          f"resident mIoU matrix (sum {int(hist_r.sum())}) differs from the "
+          f"host-fed one (sum {int(hist_h.sum())})")
+    perm = np.random.default_rng(0).permutation(n_train // bs * bs)
+    res_ms = timed_steps(torch, profile, DeviceType,
+                         lambda: rt._resident_train(
+                             trs, False, perm[:k * bs].reshape(k, bs), lr,
+                             True), k)
+    res["resident_gather"] = {"epoch_seconds": dt, "steps": epoch_steps,
+                              "step_ms": res_ms[0],
+                              "images_per_s": bs * 1e3 / res_ms[0],
+                              "device_busy_ms_per_step": res_ms[1],
+                              "idle_share": res_ms[2]}
+    print(f"resident gather epoch: {n_train // bs} steps + eval in {dt:.3f} s;"
+          f" each image read once; mIoU matrix equal to the host-fed one; "
+          f"{k}-step call {res_ms[0]:.3f} ms/step = "
+          f"{bs * 1e3 / res_ms[0]:.1f} images/s, idle "
+          + ("not measured" if res_ms[2] is None else f"{res_ms[2]:.4f}")
+          + f" ({card})")
+    if eager_step is not None:
+        res["eager_pallas_step"] = eager_step
+        print(f"eager pallas step (train phase): {eager_step['step_ms']:.3f} "
+              f"ms/step = {eager_step['images_per_s']:.1f} images/s, idle "
+              + ("not measured" if eager_step["idle_share"] is None
+                 else f"{eager_step['idle_share']:.4f}") + f" ({card})")
+    del rt, trs, vrs
+    free()
+    print("defaults " + json.dumps(res))
+    return res
+
+
+def dataclass_replace(cfg, **kw):
+    """A copy of a ``SegTrainConfig`` with top-level or ``data`` fields
+    replaced."""
+    import dataclasses
+    data_kw = {q: kw.pop(q) for q in list(kw) if hasattr(cfg.data, q)}
+    return dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, **data_kw), **kw)
 
 
 def fit_config(root, save_dir, input_shape, **kw):
@@ -1018,7 +1394,10 @@ def main():
                      torch.Generator().manual_seed(1))
     warp = timed("warp", warp_phase, torch, W, A, dev,
                  torch.Generator().manual_seed(2))
-    timed("train", train_phase, torch, W, torch.Generator().manual_seed(3))
+    eager = timed("train", train_phase, torch, W,
+                  torch.Generator().manual_seed(3))
+    timed("defaults", defaults_phase, torch, W,
+          torch.Generator().manual_seed(4), card, eager)
     # the slice's main path: K1-K3 as launched by fit; K5 by
     # augment_batch_kernels(fused=True), its one caller (warp phase)
     path_launches = timed("fit", fit_phase, torch, W, MF)

@@ -2,15 +2,18 @@
 """Where the PyTorch port's segmentation train step spends device time.
 
     python scripts/torch_profile_train_step.py [--batch 8] [--frozen false] \
-        [--steps 5] [--hw 512 512] [--trace path.json]
+        [--steps 5] [--hw 512 512] [--aug_backend pallas] [--aug_only false] \
+        [--trace path.json]
 
 Runs ``SegTrainer.train_step`` (xception, os16, 5 classes, bf16, Adam,
-focal + dice, ``aug_backend="pallas"``: the K1-K3 kernels, seeded random
-init) on one synthetic uint8 batch already on the GPU, under
-``torch.profiler`` after three warm-up steps, and prints: the wall time per
-step, the device busy time (kernel and copy times summed over the one
-stream), the idle share, and device time grouped by kernel family and by
-kernel name.  The last line is one JSON object.  Needs a CUDA device.
+focal + dice, seeded random init; ``--aug_backend pallas``, the default
+here, the K1-K3 kernels, or ``einsum``) on one synthetic uint8 batch already
+on the GPU, under ``torch.profiler`` after three warm-up steps, and prints:
+the wall time per step, the device busy time (kernel and copy times summed
+over the one stream), the idle share, and device time grouped by kernel
+family and by kernel name.  ``--aug_only true`` profiles the step's
+augmentation call alone (``make_train_aug_fn``, the step's parameters).
+The last line is one JSON object.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -59,6 +62,9 @@ def main(argv=None):
     ap.add_argument("--frozen", default="false")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--hw", type=int, nargs=2, default=(512, 512))
+    ap.add_argument("--aug_backend", default="pallas",
+                    choices=("pallas", "einsum"))
+    ap.add_argument("--aug_only", default="false")
     ap.add_argument("--trace", default="")
     args = ap.parse_args(argv)
 
@@ -69,11 +75,12 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     from cervical_tpu_torch.config import SegTrainConfig
-    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+    from cervical_tpu_torch.train.seg_trainer import (
+        SegTrainer, _sample_step_aug_params, make_train_aug_fn)
 
     frozen = args.frozen.lower() in ("1", "true", "yes")
     cfg = SegTrainConfig()
-    cfg.data.aug_backend = "pallas"
+    cfg.data.aug_backend = args.aug_backend
     cfg.data.input_shape = tuple(args.hw)
     trainer = SegTrainer(cfg)
     rng = np.random.default_rng(0)
@@ -82,15 +89,24 @@ def main(argv=None):
                                            dtype=np.uint8)).cuda()
     labels = torch.from_numpy(rng.integers(0, 5, (b, h, w),
                                            dtype=np.uint8)).cuda()
+    aug_only = args.aug_only.lower() in ("1", "true", "yes")
+    aug = make_train_aug_fn(cfg)
+    params = {k: v.cuda() for k, v in _sample_step_aug_params(
+        cfg, torch.Generator().manual_seed(0), b).items()}
+
+    def step():
+        if aug_only:
+            return aug(images, labels, params)
+        return trainer.train_step(images, labels, frozen, 1e-4)
     for _ in range(3):  # warm-up: kernel builds, cuDNN heuristics
-        trainer.train_step(images, labels, frozen, 1e-4)
+        step()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            trainer.train_step(images, labels, frozen, 1e-4)
+            step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
     if args.trace:
@@ -111,8 +127,9 @@ def main(argv=None):
         by_family[family(e.key)] += dev_us / 1e3 / args.steps
     busy_ms = sum(by_name.values())
     card = torch.cuda.get_device_name(0)
-    print(f"{card}; train step, batch {b}, {h}x{w}, frozen={frozen}, "
-          f"{args.steps} profiled steps")
+    print(f"{card}; train step ({args.aug_backend} augmentation"
+          f"{', the augmentation alone' if aug_only else ''}), "
+          f"batch {b}, {h}x{w}, frozen={frozen}, {args.steps} profiled steps")
     print(f"per step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
           f"idle share {1 - busy_ms / wall_ms:.4f}")
     print("device ms per step by family:")
@@ -121,7 +138,8 @@ def main(argv=None):
     print("top kernels by device ms per step:")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {ms:10.3f}  {name[:110]}")
-    print(json.dumps({"device": card, "batch": b, "hw": [h, w],
+    print(json.dumps({"device": card, "aug_backend": args.aug_backend,
+                      "aug_only": args.aug_only, "batch": b, "hw": [h, w],
                       "frozen": frozen, "steps": args.steps,
                       "wall_ms_per_step": wall_ms,
                       "device_busy_ms_per_step": busy_ms,

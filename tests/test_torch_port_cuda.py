@@ -501,3 +501,186 @@ def test_trainer_epoch_on_card_matches_cpu_losses(cuda_device):
                            False, 1e-4)
     np.testing.assert_allclose(m_gpu["loss"].item(), m_cpu["loss"].item(),
                                rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# K-step calls as CUDA graphs (train/graphs.py) and the einsum backend
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def deterministic_cudnn(cuda_device):
+    """cuDNN's deterministic algorithms: at these f32 test shapes its
+    heuristics may take a backward algorithm that sums with atomics, and
+    then two eager runs differ too; the graph is held to the eager steps
+    bit for bit with that noise removed."""
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    yield cuda_device
+    torch.backends.cudnn.deterministic = was
+
+
+def _graph_cfg(**kw):
+    from cervical_tpu_torch.config import SegDataConfig, SegTrainConfig
+    data = {k: kw.pop(k) for k in ("aug_backend", "aug_pre_batch")
+            if k in kw}
+    return SegTrainConfig(data=SegDataConfig(input_shape=(64, 64), **data),
+                          dtype="float32", **kw)
+
+
+def _k_batches(device, k=3, b=4, seed=31):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.integers(0, 256, (k, b, 64, 64, 3),
+                                          dtype=np.uint8)).to(device),
+            torch.from_numpy(rng.integers(0, 5, (k, b, 64, 64),
+                                          dtype=np.uint8)).to(device))
+
+
+def _states_equal(a, b):
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    same = all(torch.equal(v, sb[k]) for k, v in sa.items())
+    for g in ("backbone", "head"):
+        xa, xb = (o.state_dict()["state"] for o in (a.opt_state[g],
+                                                     b.opt_state[g]))
+        same &= xa.keys() == xb.keys() and all(
+            torch.equal(torch.as_tensor(v), torch.as_tensor(xb[i][k]))
+            for i in xa for k, v in xa[i].items())
+    return same
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "sgd"])
+@pytest.mark.parametrize("frozen", [False, True], ids=["unfrozen", "frozen"])
+def test_k_step_graph_equals_eager_steps(deterministic_cudnn, optimizer,
+                                        frozen):
+    """A K-step call, captured and replayed twice, against 2K eager steps
+    from a trainer of the same seed (dropout on, the einsum backend), with
+    Adam and with Nesterov SGD: the same losses and states bit for bit, the
+    step count advanced per replay."""
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+    cfg = _graph_cfg(optimizer_type=optimizer)
+    images, labels = _k_batches(deterministic_cudnn)
+    tg, te = SegTrainer(cfg), SegTrainer(cfg)
+    got = torch.cat([tg.train_steps(images, labels, frozen, 1e-3)["loss"]
+                     for _ in range(2)])
+    want = torch.stack([te.train_step(images[i], labels[i], frozen,
+                                      1e-3)["loss"]
+                        for _ in range(2) for i in range(3)])
+    assert torch.equal(got, want)
+    assert tg.state.step == te.state.step == 6
+    assert _states_equal(tg.state, te.state)
+
+
+def test_sgd_epoch_on_default_steps_per_call(cuda_device):
+    """Nesterov SGD with the default ``steps_per_call`` (8) on the card: a
+    9-batch epoch runs one 8-step graph call and one single step, every
+    batch once, with finite metrics and moved params."""
+    from cervical_tpu_torch.config import SegTrainConfig
+    from cervical_tpu_torch.data.voc import ArraySegDataset, BatchLoader
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+    cfg = _graph_cfg(optimizer_type="sgd")
+    assert cfg.steps_per_call == SegTrainConfig().steps_per_call == 8
+    rng = np.random.default_rng(37)
+    imgs = rng.integers(0, 256, (36, 64, 64, 3), dtype=np.uint8)
+    lbls = rng.integers(0, 5, (36, 64, 64), dtype=np.uint8)
+    tr = SegTrainer(cfg)
+    before = [p.detach().clone() for p in tr.state.model.parameters()]
+    res = tr.run_epoch(BatchLoader(ArraySegDataset(imgs, lbls), 4, seed=1),
+                       BatchLoader(ArraySegDataset(imgs[:8], lbls[:8]), 4,
+                                   shuffle=False),
+                       0, False, 1e-2)
+    assert tr.state.step == 9 and np.isfinite(res.train_loss)
+    assert len(tr._graphs) == 1
+    assert not all(torch.equal(a, p) for a, p in
+                   zip(before, tr.state.model.parameters()))
+
+
+def test_graph_replays_count_kernel_launches(deterministic_cudnn):
+    """The kernel backend in a K-step graph: each replay adds the captured
+    launches (K per kernel), the capture and its warm-up none; with
+    aug_pre_batch one launch per kernel per call, and the call equals the
+    per-step eager steps bit for bit."""
+    from cervical_tpu_torch.ops import warp as W
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+    images, labels = _k_batches(deterministic_cudnn)
+    per = SegTrainer(_graph_cfg(aug_backend="pallas"))
+    W.reset_launches()
+    per.train_steps(images, labels, False, 1e-3)
+    assert W.LAUNCHES["warp_images"] == W.LAUNCHES["photometric"] == 3
+    per.train_steps(images, labels, False, 1e-3)
+    assert W.LAUNCHES == {"warp_images": 6, "warp_labels": 6,
+                          "photometric": 6, "warp_photo_images": 0}
+    pre = SegTrainer(_graph_cfg(aug_backend="pallas", aug_pre_batch=True))
+    eager = SegTrainer(_graph_cfg(aug_backend="pallas"))
+    W.reset_launches()
+    got = pre.train_steps(images, labels, False, 1e-3)["loss"]
+    assert W.LAUNCHES == {"warp_images": 1, "warp_labels": 1,
+                          "photometric": 1, "warp_photo_images": 0}
+    want = torch.stack([eager.train_step(images[i], labels[i], False,
+                                         1e-3)["loss"] for i in range(3)])
+    assert torch.equal(got, want) and _states_equal(pre.state, eager.state)
+
+
+def test_resident_graph_epoch_on_card(cuda_device):
+    """A resident gather epoch on the card (graphs for the 2-step calls,
+    the 1-step tail and the eval sums): every image read once; the
+    resident confusion matrix equals the host-fed one."""
+    from cervical_tpu_torch.data.resident import ResidentSegData
+    from cervical_tpu_torch.data.voc import ArraySegDataset, BatchLoader
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+    rng = np.random.default_rng(33)
+    imgs = rng.integers(0, 256, (22, 64, 64, 3), dtype=np.uint8)
+    lbls = rng.integers(0, 5, (22, 64, 64), dtype=np.uint8)
+    tr = SegTrainer(_graph_cfg(steps_per_call=2, device_resident=True))
+    seen, run = [], tr._resident_train
+
+    def record(data, frozen, idx, lr, gather):
+        seen.append(np.asarray(idx).ravel())
+        return run(data, frozen, idx, lr, gather)
+    tr._resident_train = record
+    trs = ResidentSegData.from_arrays(imgs, lbls, 4, cuda_device)
+    vrs = ResidentSegData.from_arrays(imgs[:11], lbls[:11], 4, cuda_device,
+                                      train=False)
+    res = tr.run_epoch(trs, vrs, 0, False, 1e-3)
+    assert np.isfinite(res.train_loss) and tr.state.step == 5
+    assert sorted(np.concatenate(seen).tolist()) == list(range(20))
+    host = tr.evaluate_miou(BatchLoader(ArraySegDataset(imgs[:11], lbls[:11]),
+                                        4, shuffle=False, drop_last=False))
+    np.testing.assert_array_equal(tr.evaluate_miou(vrs)["hist"],
+                                  host["hist"])
+
+
+def test_einsum_augmentation_on_card_matches_cpu(cuda_device):
+    """The einsum backend at the step's caps on the card against the CPU:
+    labels equal, images within one bf16 step on at most 1e-3 of the
+    elements."""
+    from cervical_tpu_torch.ops import augment as A
+    from cervical_tpu_torch.ops.warp_xla import augment_batch_einsum
+    rng = np.random.default_rng(34)
+    imgs = torch.from_numpy(rng.integers(0, 256, (8, 80, 96, 3),
+                                         dtype=np.uint8))
+    lbls = torch.from_numpy(rng.integers(0, 5, (8, 80, 96), dtype=np.uint8))
+    p = A.sample_augment_params(torch.Generator().manual_seed(35), 8,
+                                rotate_prefix=2, blur_suffix=2)
+    for kw in ({}, {"two_shear": True}, {"int8_resample": True}):
+        kw.update(rotate_capacity=2, blur_capacity=2)
+        ri, rl = augment_batch_einsum(imgs, lbls, p, (64, 64), **kw)
+        gi, gl = augment_batch_einsum(
+            imgs.to(cuda_device), lbls.to(cuda_device),
+            {k: v.to(cuda_device) for k, v in p.items()}, (64, 64), **kw)
+        assert torch.equal(gl.cpu(), rl), kw
+        d = (gi.float().cpu() - ri.float()).abs()
+        assert bool((d <= 2.0 ** -7 * ri.float().abs()).all()), kw
+        assert float((d > 0).float().mean()) <= 1e-3, kw
+
+
+def test_capture_refuses_host_uploads(cuda_device):
+    """No fallback: the kernel chain asked to upload host parameters while
+    a graph captures raises."""
+    from cervical_tpu_torch.ops import augment as A
+    from cervical_tpu_torch.ops import warp as W
+    images, labels = _k_batches(cuda_device)
+    p = A.sample_augment_params(torch.Generator().manual_seed(36), 4)
+    W.augment_batch_kernels(images[0], labels[0], p, (64, 64))  # warm
+    g = torch.cuda.CUDAGraph()
+    with pytest.raises(RuntimeError, match="captures"):
+        with torch.cuda.graph(g):
+            W.augment_batch_kernels(images[0], labels[0], p, (64, 64))

@@ -350,7 +350,12 @@ def test_letterbox_einsum_matches_jax(src):
                                   (S, S), letterbox=True)
     np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
     _one_step_ok(gi.float().numpy(), wi, max_share=1e-2)
-    with pytest.raises(NotImplementedError):
-        augment_batch_einsum(torch.from_numpy(images),
-                             torch.from_numpy(labels),
-                             A.letterbox_params_like(B, src, (S, S)), (S, S))
+    # the same parameters through the train-time branch (letterbox=False:
+    # the train resize, an identity rotation of every image, gains of 1)
+    wi, wl = jeinsum(jnp.asarray(images), jnp.asarray(labels), jp, (S, S))
+    gi, gl = augment_batch_einsum(torch.from_numpy(images),
+                                  torch.from_numpy(labels),
+                                  A.letterbox_params_like(B, src, (S, S)),
+                                  (S, S))
+    np.testing.assert_array_equal(gl.numpy(), np.asarray(wl))
+    _one_step_ok(gi.float().numpy(), wi, max_share=1e-2)
