@@ -44,6 +44,24 @@ Training on the JAX package's defaults:
 * ``cervical_tpu_torch.data.resident`` — the device-resident dataset and
   ``SegTrainer.run_epoch_resident``.
 
+The fusion slice (the multimodal lesion-severity classifier):
+
+* ``cervical_tpu_torch.models.fusion`` — ``FusionMAE`` (``models.layers``,
+  ``models.mae``, ``ops.graph``), named like the reference torch model, so
+  its ``state_dict`` loads (``train.torch_import.load_fusion``) and the JAX
+  package's params carry over (``train.flax_import.fusion_from_flax``);
+* ``cervical_tpu_torch.train.fusion_trainer`` — the train step (a CUDA
+  graph per micro-batch shape on the card), the epoch, ``predict`` and the
+  stratified CV with fold-level resume; the CLI is ``python -m
+  cervical_tpu_torch.train_fusion``;
+* ``cervical_tpu_torch.inference.fusion_predictor`` — ``FusionPredictor``
+  over the JAX package's ``best_seed*_fold*.npz`` format; the CLI is
+  ``python -m cervical_tpu_torch.predict_fusion``;
+* ``data.fusion_data``, ``data.splits``, ``data.masks``, the fusion losses
+  and the classification metrics.
+
+The fusion path has no hand-written kernel: it is dense products.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -1,9 +1,8 @@
 """Typed configuration — the port's own copy of the fields its slices read.
 
 Mirrors ``cervical_tpu/config.py`` (``SegDataConfig``, ``SegTrainConfig``,
-``load_config``, ``parse_cli_overrides``) with the same names, defaults and
-override syntax (``--a.b.c value``).  The predictor's fields and those the
-segmentation train and eval steps read are here.  Fields that only tune how
+``FusionTrainConfig``, ``load_config``, ``parse_cli_overrides``) with the
+same names, defaults and override syntax (``--a.b.c value``).  Fields that only tune how
 JAX lowers work for the TPU are accepted, so configs written for the JAX
 package load unchanged, and have no effect in the port (each says so).
 """
@@ -121,6 +120,66 @@ class SegTrainConfig:
     resident_shuffle: str = "gather"
 
 
+@dataclass
+class FusionTrainConfig:
+    """Multimodal fusion trainer config (my_train(full).py:648-678 + the
+    per-arity deltas table, SURVEY.md §2.1)."""
+
+    modalities: Tuple[str, ...] = ("imgN", "imgA", "imgL", "cli")
+    in_features: int = 1024
+    hidden: int = 512
+    num_classes: int = 4
+    dropout: float = 0.3
+    mix: bool = True
+    epochs: int = 180
+    lr: float = 1e-4
+    batch_size: int = 8
+    # per-arity deltas (SURVEY §2.1): 4-modal (5, .25, 5e-4, 40);
+    # 3-modal (10, .11, 1e-3, 30); 2-modal (5, .25, 1e-3, 20)
+    kfold: int = 5
+    inner_test_size: float = 0.25
+    weight_decay: float = 5e-4
+    lr_step: int = 40
+    lr_gamma: float = 0.8  # adjust_lr_raito
+    add_mse_loss_of_mae: bool = True
+    mse_loss_of_mae_factor: float = 5.0
+    head_weight_all: float = 1.0
+    head_weight_img: float = 0.3
+    head_weight_cli: float = 0.2
+    epoch0_no_step: bool = True  # my_train(full).py:350-353 warmup quirk
+    # evaluate the test fold every epoch like the reference (my_train(full)
+    # .py:538-539); selection stays val-based
+    per_epoch_test: bool = True
+    start_seed: int = 0
+    repeat_num: int = 1
+    save_dir: str = "logs_fusion"
+    # float32 only in the port so far; "bfloat16" raises (ROADMAP §1)
+    dtype: str = "float32"
+
+    def arity_defaults(self, explicit=()):
+        """Apply the reference's per-arity hyperparameter deltas in place.
+
+        ``explicit`` names config keys the user set via file/CLI; those are
+        left untouched so e.g. ``--kfold 7`` survives on a 3-modal run.
+        Deltas: Three_Modal/train(NAL).py:494,510,542 (kfold 10,
+        test_size .11, wd 1e-3, lr_step 30); Two_Modal/train(NC).py:418-466
+        (wd 1e-3, lr_step 20); 4-modal keeps the dataclass defaults
+        (my_train(full).py:648-678).
+        """
+        n = len(self.modalities)
+        deltas = {
+            3: dict(kfold=10, inner_test_size=0.11,
+                    weight_decay=1e-3, lr_step=30),
+            2: dict(kfold=5, inner_test_size=0.25,
+                    weight_decay=1e-3, lr_step=20),
+        }.get(n)
+        if deltas:
+            for k, v in deltas.items():
+                if k not in explicit:
+                    setattr(self, k, v)
+        return self
+
+
 def _update_dataclass(obj, data: dict):
     for k, v in data.items():
         if not hasattr(obj, k):
@@ -135,8 +194,14 @@ def _update_dataclass(obj, data: dict):
     return obj
 
 
-def load_config(cls, path: Optional[str] = None, overrides: Optional[dict] = None):
-    """Build ``cls()`` then apply a YAML/JSON file and/or override dict."""
+def load_config(cls, path: Optional[str] = None, overrides: Optional[dict] = None,
+                explicit_out: Optional[set] = None):
+    """Build ``cls()`` then apply a YAML/JSON file and/or override dict.
+
+    ``explicit_out``: optional set that collects the top-level keys the
+    user actually set (file + overrides), so callers can tell them from
+    dataclass defaults (:meth:`FusionTrainConfig.arity_defaults`).
+    """
     cfg = cls()
     if path:
         with open(path) as f:
@@ -147,8 +212,12 @@ def load_config(cls, path: Optional[str] = None, overrides: Optional[dict] = Non
                     raise RuntimeError("pyyaml unavailable; use JSON config")
                 data = yaml.safe_load(f)
         _update_dataclass(cfg, data or {})
+        if explicit_out is not None and data:
+            explicit_out.update(data)
     if overrides:
         _update_dataclass(cfg, overrides)
+        if explicit_out is not None:
+            explicit_out.update(overrides)
     return cfg
 
 

@@ -1,6 +1,7 @@
-"""Segmentation losses — port of the segmentation half of
-``cervical_tpu/losses.py`` (reference: ``deeplabv3_training.py:9-56`` and
-the f-score monitor ``utils_metrics.py:13-35``).
+"""Losses — port of ``cervical_tpu/losses.py``: the segmentation half
+(reference: ``deeplabv3_training.py:9-56`` and the f-score monitor
+``utils_metrics.py:13-35``) and the fusion half (my_train(full).py:202,
+253,318-341).
 
 Logits are NHWC ``(B, H, W, C)`` and labels ``(B, H, W)`` integers, as in
 JAX; the ignore id is ``num_classes`` (the VOC white border).  Optional
@@ -201,3 +202,58 @@ def seg_loss_bundle(logits, labels, class_weights=None, num_classes=None, *,
         preds = torch.argmax(lt, dim=0).reshape((b,) + out_hw)
         return total, main, fs, preds
     return total, main, fs
+
+
+# ---------------------------------------------------------------------------
+# Fusion classifier (my_train(full).py:202,253,318-341)
+# ---------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits, labels, weights=None):
+    """Mean CE over a batch of class logits (``nn.CrossEntropyLoss()``,
+    my_train(full).py:202,318-322).  ``weights``: optional (B,) per-sample
+    weights, a weighted mean over nonzero-weight rows (weight-0 rows pad a
+    ragged micro-batch to the full shape)."""
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    eq = (labels.long()[..., None] == torch.arange(
+        logp.shape[-1], device=logp.device)).to(torch.float32)
+    nll = -torch.sum(logp * eq, dim=-1)
+    if weights is None:
+        return torch.mean(nll)
+    w = weights.to(torch.float32)
+    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+
+
+def masked_mae_mse(mae_out, mae_labels, token_mask):
+    """MSE between reconstructed and target modality tokens over the masked
+    slots (``mes_loss_of_mae(fea_dict['mae_out'][mask[0]], ...)``,
+    my_train(full).py:253): a mean over the masked ``(num_masked, D)``
+    elements.  ``token_mask`` (..., T) bool."""
+    mae_out = mae_out.to(torch.float32)
+    mae_labels = mae_labels.to(torch.float32)
+    m = token_mask[..., None].to(torch.float32)
+    se = torch.sum((mae_out - mae_labels) ** 2 * m)
+    count = torch.clamp(torch.sum(m) * mae_out.shape[-1], min=1.0)
+    return se / count
+
+
+def fusion_multihead_loss(logits_dict, labels, head_weights=None,
+                          mae_mse=None, mse_factor=5.0, num_micro_batches=1,
+                          sample_weights=None):
+    """Weighted multi-head CE sum + the MAE-MSE auxiliary term
+    (my_train(full).py:325-341): fused head 1.0, image heads 0.3, cli 0.2;
+    ``mae_mse`` (already scaled by ``mse_loss_of_mae_factor``) divided by
+    ``num_micro_batches`` and by ``mse_factor``.  Returns (total, parts)."""
+    default_w = {"all": 1.0, "imgN": 0.3, "imgA": 0.3, "imgL": 0.3, "cli": 0.2}
+    if head_weights:
+        default_w.update(head_weights)
+    total = 0.0
+    parts = {}
+    for name, logits in logits_dict.items():
+        ce = softmax_cross_entropy(logits, labels, sample_weights)
+        parts[name] = ce
+        total = total + default_w[name] * ce
+    if mae_mse is not None:
+        aux = mae_mse / num_micro_batches / mse_factor
+        parts["mae_mse"] = aux
+        total = total + aux
+    return total, parts

@@ -18,6 +18,7 @@ import torch
 import torch.nn as nn
 
 from cervical_tpu_torch.models.backbones.xception import XceptionBackbone
+from cervical_tpu_torch.models.layers import Dropout
 from cervical_tpu_torch.ops.conv import BatchNorm2d, Conv2d
 from cervical_tpu_torch.ops.image import resize_bilinear
 
@@ -32,34 +33,6 @@ def _conv_bn_relu(inp: int, features: int, kernel: int = 1, dilation: int = 1,
         Conv2d(inp, features, kernel, padding=dilation * (kernel // 2),
                dilation=dilation, bias=True, compute_dtype=compute_dtype),
         BatchNorm2d(features, **_BN), nn.ReLU())
-
-
-class Dropout(nn.Dropout):
-    """``nn.Dropout`` drawing its masks from its own generator, seeded with
-    ``seed`` on the device of its first train-mode input, so a seeded run
-    repeats.  (JAX's dropout bits differ anyway: no parity constraint.)"""
-
-    def __init__(self, p: float, seed: int = 0):
-        super().__init__(p)
-        self.seed = seed
-        self._gen: Optional[torch.Generator] = None
-
-    def generator(self, device) -> torch.Generator:
-        """The mask generator on ``device``, seeded on first use there."""
-        device = torch.device(device)
-        if device.type == "cuda" and device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-        if self._gen is None or self._gen.device != device:
-            self._gen = torch.Generator(device).manual_seed(self.seed)
-        return self._gen
-
-    def forward(self, x):
-        if not self.training or self.p == 0.0:
-            return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=self.generator(
-                                                  x.device))
-        return x * keep * (1.0 / (1.0 - self.p))
 
 
 def _resize_nchw(x, out_hw, align_corners=True):

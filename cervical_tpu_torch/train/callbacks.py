@@ -1,5 +1,6 @@
 """Training logs: loss history, periodic mIoU, the predictor-path mIoU, the
-model-graph dump — port of ``cervical_tpu/train/callbacks.py``.
+model-graph dump, the fusion CV's per-fold curves — port of
+``cervical_tpu/train/callbacks.py``.
 
 Reference: ``Segmentation/deeplabv3+/utils/callbacks.py`` — TensorBoard
 scalars + ``epoch_loss.txt``/``epoch_val_loss.txt`` + smoothed loss PNG
@@ -197,3 +198,53 @@ class MiouHistory:
         plt.legend(loc="upper right")
         plt.savefig(os.path.join(self.log_dir, "epoch_miou.png"))
         plt.close("all")
+
+
+class FusionHistory:
+    """Per-fold loss/accuracy curves of the CV loop: one line per epoch in
+    ``seed{S}_fold{F}_metrics.txt`` (epoch, train loss, val loss, train
+    acc, val acc), PNG curves at the ``milestones`` epochs and at the end
+    of the fold where matplotlib is present (the reference's milestone
+    dumps, my_train(full).py:583-612)."""
+
+    def __init__(self, log_dir: str, seed: int, fold: int,
+                 milestones=(20, 50, 100, 150, 180)):
+        self.log_dir = log_dir
+        self.tag = f"seed{seed}_fold{fold}"
+        self.milestones = set(milestones)
+        os.makedirs(log_dir, exist_ok=True)
+        self.train_loss, self.val_loss = [], []
+        self.train_acc, self.val_acc = [], []
+
+    def append(self, epoch: int, train_loss: float, val_loss: float,
+               train_acc: float, val_acc: float):
+        self.train_loss.append(train_loss)
+        self.val_loss.append(val_loss)
+        self.train_acc.append(train_acc)
+        self.val_acc.append(val_acc)
+        with open(os.path.join(self.log_dir, f"{self.tag}_metrics.txt"),
+                  "a") as f:
+            f.write(f"{epoch}\t{train_loss:.6f}\t{val_loss:.6f}\t"
+                    f"{train_acc:.4f}\t{val_acc:.4f}\n")
+        if (epoch + 1) in self.milestones:
+            self.plot(epoch + 1)
+
+    def plot(self, epoch=None):
+        plt = _pyplot()
+        if plt is None:
+            return
+        suffix = f"_ep{epoch}" if epoch else ""
+        it = range(len(self.train_loss))
+        for name, tr, va, ylabel in (
+                ("loss", self.train_loss, self.val_loss, "Loss"),
+                ("acc", self.train_acc, self.val_acc, "Accuracy")):
+            plt.figure()
+            plt.plot(it, tr, label=f"train {name}")
+            plt.plot(it, va, label=f"val {name}")
+            plt.xlabel("Epoch")
+            plt.ylabel(ylabel)
+            plt.legend()
+            plt.grid(True)
+            plt.savefig(os.path.join(self.log_dir,
+                                     f"{self.tag}_{name}{suffix}.png"))
+            plt.close("all")

@@ -1,0 +1,529 @@
+"""Multimodal fusion trainer: the train step, the epoch and the stratified
+cross-validation — port of ``cervical_tpu/train/fusion_trainer.py`` (reference:
+``MultiModal Prediction/Four_Modal/my_train(full).py`` and its Two/Three
+variants).
+
+* The reference's per-patient loop accumulating logits over ``batch_size``
+  patients is CE over a batched forward: one step per micro-batch.
+* Adam with ``weight_decay`` is torch's coupled L2, what the JAX package
+  builds as ``add_decayed_weights -> scale_by_adam -> scale(-lr)``.  On the
+  card it is ``capturable`` and reads its LR as a 0-dim device tensor, in
+  eager steps too, so a replayed step equals an eager one bit for bit.
+* The epoch-0 quirk (``epoch0_no_step``, my_train(full).py:350-353): the
+  step computes everything and calls no ``optimizer.step()``: params, both
+  moments and the step count stay untouched.
+* The MAE-MSE term is divided by the LITERAL 5 (my_train(full).py:339), so
+  ``mse_loss_of_mae_factor`` scales it.
+* ``train_epoch`` (``use_scan=True``, the default) is the counterpart of the
+  JAX epoch scan: the epoch's micro-batches, a ragged tail padded with
+  weight-0 rows, run as replays of one CUDA graph of the train step
+  (``train/graphs.py``), captured per (batch, do_step, train set); each
+  replay gathers its rows from the cohort on the card by an index buffer.
+  On the CPU the same steps run eagerly.  ``use_scan=False``: the same
+  loop of eager steps, the tail unpadded.
+* Each fold's streams (weights, dropouts, shuffles, MAE masks) come from
+  seeds keyed by (start_seed, seed, fold), so a resumed CV repeats an
+  uninterrupted one exactly.  They are torch's streams, not JAX's
+  (ROADMAP §3).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import signal
+import threading
+from typing import Dict, Mapping, Optional
+
+import numpy as np
+import torch
+
+from cervical_tpu_torch import losses, metrics
+from cervical_tpu_torch.config import FusionTrainConfig
+from cervical_tpu_torch.data import splits as split_lib
+from cervical_tpu_torch.data.fusion_data import subset
+from cervical_tpu_torch.data.masks import (generate_modal_masks,
+                                           imputation_masks)
+from cervical_tpu_torch.models.fusion import IMAGE_MODALITIES, FusionMAE
+from cervical_tpu_torch.train.graphs import GraphedCall
+from cervical_tpu_torch.train.schedules import fusion_step_decay
+from cervical_tpu_torch.train.seg_trainer import TrainState
+
+
+def _to_jsonable(x):
+    """Recursively convert numpy containers to plain JSON types."""
+    if isinstance(x, dict):
+        return {k: _to_jsonable(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_to_jsonable(v) for v in x]
+    if isinstance(x, np.ndarray):
+        return x.tolist()
+    if isinstance(x, (np.floating, np.integer)):
+        return x.item()
+    return x
+
+
+def check_dtype(cfg: FusionTrainConfig) -> None:
+    if cfg.dtype == "bfloat16":
+        raise NotImplementedError(
+            "dtype='bfloat16' is not ported yet for the fusion model "
+            "(ROADMAP §1, with the vmapped-folds engine): use float32")
+    if cfg.dtype != "float32":
+        raise ValueError(f"unknown dtype {cfg.dtype!r}")
+
+
+def build_model(cfg: FusionTrainConfig, dropout_seed: int = 0) -> FusionMAE:
+    check_dtype(cfg)
+    return FusionMAE(modalities=tuple(cfg.modalities),
+                     in_features=cfg.in_features, hidden=cfg.hidden,
+                     num_classes=cfg.num_classes, dropout=cfg.dropout,
+                     mix=cfg.mix, dropout_seed=dropout_seed)
+
+
+def head_weights(cfg: FusionTrainConfig) -> Dict[str, float]:
+    w = {"all": cfg.head_weight_all, "cli": cfg.head_weight_cli}
+    for m in IMAGE_MODALITIES:
+        w[m] = cfg.head_weight_img
+    return w
+
+
+def stream_seeds(*key: int) -> np.ndarray:
+    """Four independent seeds (weights, dropouts, shuffles, masks) from a
+    key: ``(start_seed,)`` for a trainer, ``(start_seed, seed * 1000 +
+    fold)`` for a CV fold (the JAX package's ``fold_in`` key)."""
+    return np.random.SeedSequence(list(key)).generate_state(4)
+
+
+def make_train_step(cfg: FusionTrainConfig):
+    """``step(state, feats, labels, mae_mask, weights, lr, do_step) ->
+    {"loss", "ce_all", "preds"}``: one train step in place on ``state``
+    (forward in train mode, the weighted multi-head loss + MAE-MSE,
+    backward, and with ``do_step`` Adam).  ``weights`` (B,): weight-0 rows
+    count as absent.  ``preds`` (1 + T, B): the argmax of the heads
+    ``["all", *modalities]``.  Metrics are unsynced tensors."""
+    hw = head_weights(cfg)
+    mods = tuple(cfg.modalities)
+    heads = ("all",) + mods
+
+    def step(state: TrainState, feats, labels, mae_mask, weights, lr,
+             do_step: bool):
+        model = state.model
+        model.train()
+        opt = state.opt_state["params"]
+        opt.zero_grad(set_to_none=True)
+        out = model(feats, mae_mask=mae_mask)
+        mae_mse = None
+        if cfg.add_mse_loss_of_mae and len(mods) > 1:
+            # factor * per-sample masked mse (losses.masked_mae_mse of
+            # each row), weighted mean over samples
+            m = mae_mask[..., None].to(torch.float32)
+            se = torch.sum((out["mae_out"] - out["mae_labels"]) ** 2 * m,
+                           dim=(-2, -1))
+            per = se / torch.clamp(torch.sum(m, dim=(-2, -1))
+                                   * out["mae_out"].shape[-1], min=1.0)
+            w = weights.to(torch.float32)
+            mae_mse = (cfg.mse_loss_of_mae_factor * torch.sum(per * w)
+                       / torch.clamp(torch.sum(w), min=1.0))
+        total, parts = losses.fusion_multihead_loss(
+            out["logits"], labels, hw, mae_mse, mse_factor=5.0,
+            num_micro_batches=1, sample_weights=weights)
+        total.backward()
+        if do_step:
+            for pg in opt.param_groups:
+                pg["lr"] = lr
+            opt.step()
+            state.step += 1
+        preds = torch.stack([out["logits"][k].argmax(dim=-1) for k in heads])
+        return {"loss": total.detach(), "ce_all": parts["all"].detach(),
+                "preds": preds}
+
+    return step
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+class FusionTrainer:
+    """The fusion train step, epoch, evaluation and CV loop on one card
+    (``device``, ``cuda`` by default).  ``mesh`` (the JAX package's tensor-
+    parallel layout) is not ported and raises."""
+
+    def __init__(self, cfg: FusionTrainConfig, device: str = "cuda",
+                 mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "a tensor-parallel mesh is not ported yet (ROADMAP §1, the "
+                "parallel layouts); the port trains on one card")
+        check_dtype(cfg)
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self._stop_requested = False
+        self._step = None
+        self._graphs: dict = {}
+        self._eval_model: Optional[FusionMAE] = None
+        self.reseed(cfg.start_seed)
+
+    def reseed(self, *key: int) -> None:
+        """Reset the trainer's streams from ``key`` (:func:`stream_seeds`):
+        the init generator, the dropouts' base seed, the shuffle generator
+        (host) and the MAE-mask generator (on the device)."""
+        s_init, s_drop, s_shuf, s_mask = (int(s) for s in stream_seeds(*key))
+        self.init_generator = torch.Generator().manual_seed(s_init)
+        self.dropout_seed = s_drop % (1 << 31)
+        self.shuffle_generator = torch.Generator().manual_seed(s_shuf)
+        self.mask_generator = torch.Generator(self.device).manual_seed(s_mask)
+
+    # -- state --------------------------------------------------------------
+    def init_state(self, generator: Optional[torch.Generator] = None
+                   ) -> TrainState:
+        """A fresh model (the JAX package's initialisers, drawn from
+        ``generator``, by default the trainer's init stream) and its Adam
+        (``{"params": adam}``) on the device."""
+        cfg = self.cfg
+        model = build_model(cfg, self.dropout_seed).init_weights(
+            generator or self.init_generator).to(self.device)
+        adam = torch.optim.Adam(model.parameters(), lr=cfg.lr,
+                                betas=(0.9, 0.999), eps=1e-8,
+                                weight_decay=cfg.weight_decay,
+                                capturable=self.device.type == "cuda")
+        return TrainState(model, {"params": adam})
+
+    def train_step_fn(self):
+        if self._step is None:
+            self._step = make_train_step(self.cfg)
+        return self._step
+
+    def _lr_arg(self, lr: float):
+        """On the card a 0-dim device tensor that Adam reads there,
+        elsewhere a float."""
+        if self.device.type == "cuda":
+            return torch.full((), float(lr), device=self.device)
+        return float(lr)
+
+    def _device_cohort(self, ds):
+        """``ds`` with feats, labels and present as tensors on the device
+        (tensors already there are kept as they are)."""
+        out = dict(ds)
+        out["feats"] = {m: torch.as_tensor(v, dtype=torch.float32,
+                                           device=self.device)
+                        for m, v in ds["feats"].items()}
+        out["labels"] = torch.as_tensor(ds["labels"], dtype=torch.int64,
+                                        device=self.device)
+        out["present"] = torch.as_tensor(ds["present"], dtype=torch.bool,
+                                         device=self.device)
+        return out
+
+    def _batch_step(self, state: TrainState, feats, labels, bs: int,
+                    do_step: bool, graph: bool = True):
+        """``call(idx (B,), mask (B, T), weights (B,), lr)``: one train
+        step on the rows ``idx`` of the device cohort ``feats``/``labels``.
+        With ``graph``, on the card a replay of the step's CUDA graph,
+        captured at the first call per (batch, do_step, state, cohort);
+        otherwise, and off the card, the eager step."""
+        step = self.train_step_fn()
+
+        def fn(idx, mask, w, lr):
+            return step(state, {m: v.index_select(0, idx)
+                                for m, v in feats.items()},
+                        labels.index_select(0, idx), mask, w, lr, do_step)
+
+        if not graph or self.device.type != "cuda":
+            return fn
+        data = tuple(v.data_ptr() for v in feats.values()) + (
+            labels.data_ptr(), labels.shape[0])
+        entry = self._graphs.get((bs, do_step))
+        if entry is None or entry[0] is not state or entry[1] != data:
+            t = len(self.cfg.modalities)
+            example = (torch.zeros(bs, dtype=torch.int64, device=self.device),
+                       torch.zeros((bs, t), dtype=torch.bool,
+                                   device=self.device),
+                       torch.ones(bs, device=self.device),
+                       self._lr_arg(self.cfg.lr))
+            entry = (state, data, GraphedCall(fn, state, example,
+                                              self.device))
+            self._graphs[(bs, do_step)] = entry
+        return entry[2]
+
+    # -- epoch --------------------------------------------------------------
+    def train_epoch(self, state: TrainState, ds, epoch: int, lr: float,
+                    batch_size: Optional[int] = None, use_scan: bool = True):
+        """One epoch over the cohort ``ds`` in shuffled micro-batches
+        (train_a_epoch, my_train(full).py:188-410), ``state`` trained in
+        place; returns the report: mean CE of the fused head, per-head
+        accuracies and the fused head's classification block.
+
+        ``use_scan``: the ragged tail is padded with weight-0 rows (whose
+        weighted CE equals the reference's smaller final micro-batch), and
+        every micro-batch replays the step's CUDA graph on the card.
+        Without it the steps are eager and the tail is unpadded.  A cohort
+        already on the device (``cross_validate`` puts it there) is read in
+        place; numpy is uploaded."""
+        cfg = self.cfg
+        bs = batch_size or cfg.batch_size
+        dev = self._device_cohort(ds)
+        labels_np = _host(ds["labels"])
+        n = len(labels_np)
+        t = len(cfg.modalities)
+        heads = ["all", *cfg.modalities]
+        order = torch.randperm(n, generator=self.shuffle_generator).numpy()
+        do_step = not (cfg.epoch0_no_step and epoch == 0)
+        lr_arg = self._lr_arg(lr)
+
+        rows = (n + bs - 1) // bs * bs if use_scan else n
+        idx = torch.from_numpy(np.concatenate(
+            [order, np.zeros(rows - n, order.dtype)])).to(self.device)
+        w = torch.from_numpy(np.concatenate(
+            [np.ones(n, np.float32), np.zeros(rows - n, np.float32)])
+        ).to(self.device)
+        masks = (generate_modal_masks(self.mask_generator, rows, t) if t > 1
+                 else torch.zeros((rows, 1), dtype=torch.bool,
+                                  device=self.device))
+        call = self._batch_step(state, dev["feats"], dev["labels"], bs,
+                                do_step, graph=use_scan)
+        outs = [call(idx[s:s + bs], masks[s:s + bs], w[s:s + bs], lr_arg)
+                for s in range(0, rows, bs)]
+        total_ce = float(torch.stack([o["ce_all"] for o in outs]).sum())
+        nb = len(outs)
+        preds = torch.cat([o["preds"] for o in outs], dim=1)[:, :n]
+        preds = preds.cpu().numpy()
+
+        true = labels_np[order]
+        report = {"loss": total_ce / max(nb, 1)}
+        for i, k in enumerate(heads):
+            report[f"acc_{k}"] = metrics.accuracy(true, preds[i])
+        # the epoch metric block the reference prints (my_train(full).py:
+        # 386-408)
+        cls = metrics.classification_report(true, preds[0], cfg.num_classes)
+        for k in ("confusion", "precision", "recall", "f1", "fp", "fn",
+                  "tp", "tn", "sensitivity", "specificity"):
+            report[k] = cls[k]
+        return report
+
+    # -- evaluation -----------------------------------------------------------
+    def _eval(self, params: Mapping[str, torch.Tensor]) -> FusionMAE:
+        if self._eval_model is None:
+            self._eval_model = build_model(self.cfg).to(self.device).eval()
+        self._eval_model.load_state_dict(params)
+        return self._eval_model
+
+    @torch.no_grad()
+    def predict(self, params: Mapping[str, torch.Tensor], ds,
+                batch_size: int = 512, use_present: bool = True,
+                use_type=None):
+        """Full-cohort evaluation with the weights ``params`` (a
+        ``state_dict``; ``prediction``, my_train(full).py:47-171): per-head
+        accuracies, the fused head's CE and its classification block.
+        Batches are padded to ``batch_size`` (the last row repeated) and the
+        padding sliced off.  ``use_type``: a modality subset to evaluate
+        with; the others are zeroed and imputed by the MAE
+        (my_mae_model.py:608-622)."""
+        cfg = self.cfg
+        model = self._eval(params)
+        dev = self._device_cohort(ds)
+        t = len(cfg.modalities)
+        true = _host(ds["labels"])
+        n = len(true)
+        heads = ["all", *cfg.modalities]
+        subset_mask = None
+        if use_type is not None:
+            subset_mask = torch.tensor([m in use_type for m in cfg.modalities],
+                                       device=self.device)
+        fused, preds = [], []
+        for start in range(0, n, batch_size):
+            real = min(start + batch_size, n) - start
+            idx = torch.as_tensor(np.minimum(
+                np.arange(start, start + batch_size), n - 1),
+                device=self.device)
+            feats = {m: v.index_select(0, idx)
+                     for m, v in dev["feats"].items()}
+            present = (dev["present"].index_select(0, idx) if use_present
+                       else torch.ones((batch_size, t), dtype=torch.bool,
+                                       device=self.device))
+            if subset_mask is not None:
+                present = present & subset_mask[None, :]
+                feats = {m: torch.where(subset_mask[i], feats[m],
+                                        torch.zeros_like(feats[m]))
+                         for i, m in enumerate(cfg.modalities)}
+            out = model(feats, present=present,
+                        mae_mask=imputation_masks(present))
+            fused.append(out["logits"]["all"][:real])
+            preds.append(torch.stack([out["logits"][k].argmax(dim=-1)
+                                      for k in heads])[:, :real])
+        fused = torch.cat(fused).cpu().numpy()
+        preds = torch.cat(preds, dim=1).cpu().numpy()
+        # host-side CE of the fused head, as the JAX package computes it
+        lse = fused - fused.max(axis=-1, keepdims=True)
+        lse = lse - np.log(np.exp(lse).sum(axis=-1, keepdims=True))
+        out = {"loss": float(-lse[np.arange(n), true].mean())}
+        for i, k in enumerate(heads):
+            out[f"acc_{k}"] = metrics.accuracy(true, preds[i])
+        out.update(metrics.classification_report(true, preds[0],
+                                                 cfg.num_classes))
+        return out
+
+    # -- cross-validation ------------------------------------------------------
+    def cross_validate(self, ds, epochs: Optional[int] = None, log=print,
+                       save_dir: Optional[str] = None, resume: bool = True,
+                       vmap_folds: bool = False):
+        """Seed-repeat x stratified-K-fold CV with an inner train/val split
+        and best-by-val-accuracy selection (main, my_train(full).py:
+        417-623).  Returns ``{"folds", "mean_test_acc", "stopped_early"}``.
+
+        ``save_dir``: per-fold curves and metric logs (``FusionHistory``),
+        the best weights as ``best_seed{S}_fold{F}.npz`` in the JAX
+        package's flat layout, ``cv_progress.json`` after every fold (with
+        ``resume``, a rerun skips the folds it lists; the fold-keyed
+        streams make the rest equal to an uninterrupted run),
+        ``cv_results.json`` and the fold-summed classification report.
+
+        SIGTERM/SIGINT (or :meth:`request_stop`) stop the epoch loop,
+        finalise the current fold from its best-by-val weights and return
+        the completed folds with ``stopped_early`` set.
+
+        ``vmap_folds`` (the JAX package's fold-stacked engine) is not
+        ported yet and raises."""
+        if vmap_folds:
+            raise NotImplementedError(
+                "vmap_folds is not ported yet (ROADMAP §1: the vmapped-folds "
+                "CV engine, torch.func, is the next fusion slice)")
+        epochs = epochs or self.cfg.epochs
+        labels = np.asarray(ds["labels"])
+        self._stop_requested = False
+        prev_handlers = {}
+
+        def _request_stop(signum, frame):  # pragma: no cover - signal path
+            self._stop_requested = True
+            log(f"signal {signum}: finalizing the current fold and stopping")
+
+        if threading.current_thread() is threading.main_thread():
+            for sig in (signal.SIGTERM, signal.SIGINT):
+                prev_handlers[sig] = signal.signal(sig, _request_stop)
+        try:
+            return self._cross_validate(ds, epochs, labels, log, save_dir,
+                                        resume)
+        finally:
+            for sig, h in prev_handlers.items():
+                signal.signal(sig, h)
+
+    def request_stop(self):
+        """Ask ``cross_validate`` to stop gracefully (finalise the current
+        fold from its best-by-val weights, return the completed folds)."""
+        self._stop_requested = True
+
+    def _cross_validate(self, ds, epochs, labels, log, save_dir, resume):
+        cfg = self.cfg
+        # the cohort goes to the card once; folds and epochs gather there
+        ds = self._device_cohort(ds)
+        progress_path = (os.path.join(save_dir, "cv_progress.json")
+                         if save_dir else None)
+        done = {}
+        if resume and progress_path and os.path.exists(progress_path):
+            with open(progress_path) as f:
+                done = {(r["seed"], r["fold"]): r
+                        for r in json.load(f)["folds"]}
+            if done:
+                log(f"resuming: {len(done)} completed folds loaded from "
+                    f"{progress_path}")
+        results = []
+        fold = -1
+        for seed in range(cfg.start_seed, cfg.start_seed + cfg.repeat_num):
+            fold_results = []
+            for fold, (train_idx, test_idx) in enumerate(
+                    split_lib.stratified_kfold(labels, cfg.kfold, seed=seed)):
+                if (seed, fold) in done:
+                    fold_results.append(done[(seed, fold)])
+                    continue
+                tr_idx, val_idx = split_lib.train_test_split(
+                    train_idx, cfg.inner_test_size, seed=seed,
+                    stratify=labels[train_idx])
+                self.reseed(cfg.start_seed, seed * 1000 + fold)
+                state = self.init_state()
+                schedule = fusion_step_decay(cfg.lr, cfg.lr_gamma, cfg.lr_step)
+                history = None
+                if save_dir:
+                    from cervical_tpu_torch.train.callbacks import FusionHistory
+                    history = FusionHistory(save_dir, seed, fold)
+
+                best = {"val_acc": -1.0, "params": None, "epoch": -1}
+                train_ds = subset(ds, tr_idx)
+                val_ds = subset(ds, val_idx)
+                test_ds = subset(ds, test_idx)
+                epoch_test = [] if cfg.per_epoch_test else None
+                for epoch in range(epochs):
+                    if self._stop_requested:
+                        break
+                    rep = self.train_epoch(state, train_ds, epoch,
+                                           schedule(epoch))
+                    weights = state.model.state_dict()
+                    # the reference evaluates test and val every epoch
+                    # (my_train(full).py:538-539); selection is val-based
+                    if cfg.per_epoch_test:
+                        te = self.predict(weights, test_ds)
+                        epoch_test.append({"epoch": epoch,
+                                           "loss": te["loss"],
+                                           "acc_all": te["acc_all"]})
+                    val = self.predict(weights, val_ds)
+                    if history is not None:
+                        history.append(epoch, rep["loss"], val["loss"],
+                                       rep["acc_all"], val["acc_all"])
+                    if val["acc_all"] > best["val_acc"]:
+                        best = {"val_acc": val["acc_all"],
+                                "params": {k: v.detach().clone()
+                                           for k, v in weights.items()},
+                                "epoch": epoch}
+                    if (epoch + 1) % 20 == 0 or epoch == epochs - 1:
+                        msg = (f"seed {seed} fold {fold} epoch {epoch + 1}: "
+                               f"train acc {rep['acc_all']:.3f} "
+                               f"val acc {val['acc_all']:.3f}")
+                        if cfg.per_epoch_test:
+                            msg += f" test acc {epoch_test[-1]['acc_all']:.3f}"
+                        log(msg)
+                best_params = best["params"] or state.model.state_dict()
+                final = self.predict(best_params, test_ds)
+                if history is not None:
+                    history.plot()
+                if save_dir:
+                    from cervical_tpu_torch.inference.fusion_predictor import (
+                        save_params_npz)
+                    save_params_npz(os.path.join(
+                        save_dir, f"best_seed{seed}_fold{fold}.npz"),
+                        best_params)
+                fold_results.append({"seed": seed, "fold": fold,
+                                     "best_epoch": best["epoch"],
+                                     "val_acc": best["val_acc"],
+                                     "test": final,
+                                     "epoch_test": epoch_test})
+                log(f"seed {seed} fold {fold}: test acc {final['acc_all']:.3f}")
+                if progress_path:
+                    # durable fold-level progress (atomic rename): the
+                    # resume source after a stop or a crash
+                    tmp = progress_path + ".tmp"
+                    with open(tmp, "w") as f:
+                        json.dump(_to_jsonable(
+                            {"folds": results + fold_results}), f)
+                    os.replace(tmp, progress_path)
+                if self._stop_requested:
+                    break
+            results.extend(fold_results)
+            if self._stop_requested:
+                log(f"stopped early after seed {seed} fold {fold} "
+                    f"({len(results)} folds completed)")
+                break
+        self._graphs.clear()
+        mean_acc = float(np.mean([r["test"]["acc_all"] for r in results]))
+        if save_dir:
+            with open(os.path.join(save_dir, "cv_results.json"), "w") as f:
+                json.dump(_to_jsonable(
+                    {"folds": results,
+                     "mean_test_acc": mean_acc,
+                     "stopped_early": self._stop_requested,
+                     "modalities": list(cfg.modalities)}), f, indent=1)
+            if results:
+                total_cm = np.sum([np.asarray(r["test"]["confusion"])
+                                   for r in results], axis=0)
+                metrics.write_classification_report(
+                    metrics.report_from_confusion(total_cm),
+                    os.path.join(save_dir, "classification_out"))
+        return {"folds": results, "mean_test_acc": mean_acc,
+                "stopped_early": self._stop_requested}

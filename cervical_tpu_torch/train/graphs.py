@@ -35,7 +35,7 @@ from typing import Callable, Dict, Sequence
 
 import torch
 
-from cervical_tpu_torch.models.deeplab import Dropout
+from cervical_tpu_torch.models.layers import Dropout
 from cervical_tpu_torch.ops import middle_flow as MF
 from cervical_tpu_torch.ops import warp as W
 

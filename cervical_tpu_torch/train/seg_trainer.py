@@ -84,7 +84,8 @@ def reference_weights_init(model: nn.Module, generator: torch.Generator,
 @dataclasses.dataclass
 class TrainState:
     """The model (params and BatchNorm running stats) and one optimizer per
-    param group, ``{"backbone": ..., "head": ...}``."""
+    param group, ``{"backbone": ..., "head": ...}`` (the fusion model's
+    one group: ``{"params": ...}``)."""
 
     model: DeepLab
     opt_state: Dict[str, torch.optim.Optimizer]

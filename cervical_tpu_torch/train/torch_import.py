@@ -1,6 +1,6 @@
-"""Loading torch checkpoints into the port's DeepLab — the counterpart of
-``cervical_tpu/train/torch_import.py`` (``load_state_dict``,
-``is_full_deeplab_sd``, ``merge_into``).
+"""Loading torch checkpoints into the port's DeepLab and FusionMAE — the
+counterpart of ``cervical_tpu/train/torch_import.py`` (``load_state_dict``,
+``is_full_deeplab_sd``, ``merge_into``, ``convert_fusion``).
 
 The reference bootstraps from ImageNet backbone weights and from the
 shape-matched partial load of a whole-model checkpoint such as
@@ -57,3 +57,18 @@ def load_into(model: nn.Module, sd: Dict[str, torch.Tensor],
         else:
             skipped.append(prefix + k)
     return loaded, skipped
+
+
+# the reference's fc_cli_1/fc_cli_2 are built and never called
+# (my_mae_model.py:421-422); the JAX package's convert_fusion skips them too
+_FUSION_DEAD = ("fc_cli_1.", "fc_cli_2.")
+
+
+def load_fusion(model: nn.Module, sd: Dict[str, torch.Tensor]) -> List[str]:
+    """Load the reference ``fusion_model_mae_2`` ``state_dict`` into the
+    port's ``FusionMAE``, whose names are the reference's: strictly, but
+    for the dead ``fc_cli_1``/``fc_cli_2`` layers, whose names it returns."""
+    dead = [k for k in sd if k.startswith(_FUSION_DEAD)]
+    model.load_state_dict({k: v for k, v in sd.items() if k not in dead},
+                          strict=True)
+    return dead

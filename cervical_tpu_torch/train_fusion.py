@@ -1,0 +1,80 @@
+"""Train the multimodal fusion classifier with stratified-K-fold CV — the
+port's counterpart of ``scripts/train_fusion.py`` (replaces the 11
+reference training scripts, Four_Modal/my_train(full).py,
+Three_Modal/train(NAL|NAC|NLC|ALC).py, Two_Modal/train(..).py: the
+modality subset is a flag).
+
+Usage:
+    python -m cervical_tpu_torch.train_fusion --cohort cohort.npz \
+        --modalities '["imgN","imgA","imgL","cli"]' [--epochs 180] \
+        [--log_dir log] [--device cuda] [--key value ...]
+
+The per-arity deltas (``FusionTrainConfig.arity_defaults``) apply after the
+file and CLI values, never over a key set explicitly.  ``--device``
+defaults to ``cuda``.  SIGTERM or SIGINT finalises the fold in flight and
+stops; a rerun with the same ``--save_dir`` resumes after the completed
+folds.  ``--vmap_folds true`` and ``--vmap_group`` (the JAX package's
+fold-stacked engine) and the multihost flags are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+import sys
+
+_MULTIHOST_FLAGS = ("--multihost", "--coordinator", "--num_processes",
+                    "--process_id")
+
+
+def build_config(argv):
+    """Parse CLI args into (cfg, cohort_path, log_dir, device)."""
+    from cervical_tpu_torch.config import (FusionTrainConfig, load_config,
+                                           parse_cli_overrides)
+    overrides = parse_cli_overrides(argv)
+    cohort_path = overrides.pop("cohort", None)
+    cfg_path = overrides.pop("config", None)
+    log_dir = overrides.pop("log_dir", None)
+    if overrides.pop("vmap_folds", False) or "vmap_group" in overrides:
+        raise NotImplementedError(
+            "--vmap_folds/--vmap_group are not ported yet (ROADMAP §1: the "
+            "vmapped-folds CV engine is the next fusion slice)")
+    device = overrides.pop("device", "cuda")
+    explicit = set()
+    cfg = load_config(FusionTrainConfig, cfg_path, overrides,
+                      explicit_out=explicit)
+    cfg.arity_defaults(explicit=explicit)
+    return cfg, cohort_path, log_dir, device
+
+
+def main(argv):
+    for flag in _MULTIHOST_FLAGS:
+        if any(a == flag or a.startswith(flag + "=") for a in argv):
+            raise NotImplementedError(
+                f"{flag}: multihost training is not ported yet (ROADMAP §1, "
+                "the parallel layouts); the port trains on one card")
+    from cervical_tpu_torch.data.fusion_data import (align_to_modalities,
+                                                     load_npz)
+    from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
+    from cervical_tpu_torch.utils import Logger, show_config
+
+    cfg, cohort_path, log_dir, device = build_config(argv)
+    if log_dir:  # tee stdout to log_dir/<timestamp>.log (util.py:50-67)
+        sys.stdout = Logger(log_dir, stream=sys.stdout)
+    show_config(**{k: getattr(cfg, k) for k in
+                   ("modalities", "epochs", "lr", "batch_size", "kfold",
+                    "inner_test_size", "weight_decay", "lr_step", "mix",
+                    "add_mse_loss_of_mae")}, device=device)
+    if cohort_path is None:
+        raise SystemExit("--cohort path/to/cohort.npz is required")
+    ds = load_npz(cohort_path)
+    if ds["labels"] is None:
+        raise SystemExit(f"{cohort_path} carries no 'labels' array — "
+                         "training needs diagnosis labels")
+    ds = align_to_modalities(ds, cfg.modalities)
+
+    trainer = FusionTrainer(cfg, device=device)
+    result = trainer.cross_validate(ds, save_dir=cfg.save_dir)
+    print(f"mean test accuracy over folds: {result['mean_test_acc']:.4f}")
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -81,7 +81,20 @@
    cervical_tpu_torch.train_seg`` on the same data, sent SIGTERM once
    epoch 1 is logged, must finish epoch 2, checkpoint it and exit 0.
    Prints seconds per epoch and the peak memory.
-8. Prints one ``{"kernels": [...]}`` line (six kernels), then as the last
+8. Drives the fusion classifier (``fusion`` phase) at
+   ``FusionTrainConfig()``'s width (four modalities, in_features 1024,
+   hidden 512, 4 classes, batch 8) on a synthetic 1,758-patient cohort
+   drawn on the card (374 MB of features): ``FusionPredictor`` on the card
+   against the same weights on the CPU (96 patients, some slots absent, to
+   1e-4) and its patients/s at batch 512; 8 train steps replayed from the
+   step's CUDA graph against 8 eager steps on a twin state, dropout on,
+   bit for bit (losses, predictions, params, Adam state); ms/step and the
+   idle share of both, and the graph step's top kernels; an epoch over the
+   whole cohort; ``cross_validate`` stopped after folds 0 and 1 of 5, 3
+   epochs each, whose fused train accuracy must exceed 0.7 (the JAX
+   package's threshold, tests/test_fusion_training.py:83).  No kernel of
+   the port runs here: the fusion path has none.
+9. Prints one ``{"kernels": [...]}`` line (six kernels), then as the last
    line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, if any check fails, if there is no
@@ -1347,6 +1360,214 @@ def fit_phase(torch, W, MF, input_shape=(512, 512), n_train=24, n_val=8,
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+def synthetic_cohort(torch, n, dim, seed, device, noise=0.5):
+    """``make_synthetic_fusion``'s cohort (a class prototype per label plus
+    noise on every node), drawn on ``device``: labels from numpy (the
+    splits stratify them on the host), features by a seeded generator."""
+    import numpy as np
+    from cervical_tpu_torch.data.fusion_data import node_count
+    from cervical_tpu_torch.models.fusion import ALL_MODALITIES
+    labels = np.random.default_rng(seed).integers(0, 4, n).astype(np.int32)
+    g = torch.Generator(device).manual_seed(seed)
+    protos = torch.randn((4, dim), generator=g, device=device)
+    lab = torch.from_numpy(labels).long().to(device)
+    feats = {m: protos[lab][:, None, :] + noise * torch.randn(
+        (n, node_count(m), dim), generator=g, device=device)
+        for m in ALL_MODALITIES}
+    return {"feats": feats, "labels": labels,
+            "present": np.ones((n, len(ALL_MODALITIES)), bool),
+            "ids": [str(i) for i in range(n)]}
+
+
+def top_kernels(torch, prof_cls, DeviceType, run, steps, top=8):
+    """Device kernels of one profiled ``run()`` (``steps`` steps): the
+    launches per step of all of them, then the ``top`` by self device
+    time as (name, ms per step, launches per step)."""
+    from torch.profiler import ProfilerActivity
+    run()
+    torch.cuda.synchronize()
+    with prof_cls(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        rows.append((e.key[:90], us / 1e3 / steps, e.count / steps))
+    return [sum(r[2] for r in rows)] + sorted(rows, key=lambda r: -r[1])[:top]
+
+
+def fusion_phase(torch, card, n=1758, dim=None, hidden=None, device="cuda",
+                 timing=True):
+    """The fusion classifier (``FusionTrainConfig()``: four modalities,
+    in_features 1024, hidden 512, 4 classes, batch 8) on a synthetic
+    1,758-patient cohort on the card: ``FusionPredictor`` against the same
+    weights on the CPU, 8 graph-replayed train steps against 8 eager ones
+    bit for bit, the steps' readings, ``cross_validate`` for 2 folds x 3
+    epochs.  ``dim``/``hidden``/``timing`` shrink it for a CPU
+    rehearsal."""
+    import dataclasses
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    from cervical_tpu_torch.config import FusionTrainConfig
+    from cervical_tpu_torch.data.masks import generate_modal_masks
+    from cervical_tpu_torch.inference.fusion_predictor import FusionPredictor
+    from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
+
+    cfg = FusionTrainConfig(epochs=3)
+    check((cfg.modalities, cfg.in_features, cfg.hidden, cfg.num_classes,
+           cfg.batch_size, cfg.kfold, cfg.dtype) ==
+          (("imgN", "imgA", "imgL", "cli"), 1024, 512, 4, 8, 5, "float32"),
+          "FusionTrainConfig defaults")
+    if dim is not None:
+        cfg = dataclasses.replace(cfg, in_features=dim, hidden=hidden)
+    dev = torch.device(device)
+    ds = synthetic_cohort(torch, n, cfg.in_features, 7, dev)
+    res = {"config": "FusionTrainConfig() 4-modal in 1024 hidden 512, "
+                     f"{n} synthetic patients", "card": card}
+
+    # serving: the card against the CPU on the same weights (96 patients at
+    # batch 64: the CPU forward is the slow side), then patients/s at 512
+    seconds = {}
+    t0 = time.perf_counter()
+    tr = FusionTrainer(cfg, device=device)
+    sd = tr.init_state(torch.Generator().manual_seed(11)).model.state_dict()
+    sd_cpu = {k: v.cpu() for k, v in sd.items()}
+    n_srv = 96
+    feats = {m: v[:n_srv].cpu().numpy() for m, v in ds["feats"].items()}
+    present = np.ones((n_srv, 4), bool)
+    present[::3, 2] = False
+    present[1::7, 0] = False
+    got = FusionPredictor(cfg, sd, batch_size=64, device=device
+                          ).predict_proba(feats, present)
+    ref = FusionPredictor(cfg, sd_cpu, batch_size=64, device="cpu"
+                          ).predict_proba(feats, present)
+    err = max(float(np.abs(got[k] - ref[k]).max()) for k in ref)
+    check(err < 1e-4, f"FusionPredictor card against CPU: {err} >= 1e-4")
+    res["predictor_card_vs_cpu_max_abs"] = err
+    if timing:
+        res["predictor_patients_per_s"] = FusionPredictor(
+            cfg, sd, device=device).get_throughput(512, 20)
+    seconds["serve"] = time.perf_counter() - t0
+
+    # 8 graph replays against 8 eager steps, twin states, dropout on
+    a, b = FusionTrainer(cfg, device=device), FusionTrainer(cfg, device=device)
+    sa, sb = a.init_state(), b.init_state()
+    dv = a._device_cohort(ds)
+    bs = cfg.batch_size
+    g = torch.Generator(dev).manual_seed(3)
+    idx = torch.randint(0, n, (8, bs), generator=g, device=dev)
+    masks = generate_modal_masks(g, 8 * bs, 4).reshape(8, bs, 4)
+    w = torch.ones((8, bs), device=dev)
+    w[7, 5:] = 0
+    t0 = time.perf_counter()
+    call = a._batch_step(sa, dv["feats"], dv["labels"], bs, True)
+    step = b.train_step_fn()
+
+    def eager(i):
+        return step(sb, {m: v.index_select(0, idx[i])
+                         for m, v in dv["feats"].items()},
+                    dv["labels"].index_select(0, idx[i]), masks[i], w[i],
+                    b._lr_arg(cfg.lr), True)
+    same = True
+    for i in range(8):
+        ma = call(idx[i], masks[i], w[i], a._lr_arg(cfg.lr))
+        mb = eager(i)
+        same &= all(torch.equal(ma[k], mb[k]) for k in ma)
+    ma_sd, mb_sd = sa.model.state_dict(), sb.model.state_dict()
+    same &= all(torch.equal(v, mb_sd[k]) for k, v in ma_sd.items())
+    xa = sa.opt_state["params"].state_dict()["state"]
+    xb = sb.opt_state["params"].state_dict()["state"]
+    same &= all(torch.equal(torch.as_tensor(xa[i][k]),
+                            torch.as_tensor(xb[i][k]))
+                for i in xa for k in xa[i])
+    check(same and sa.step == sb.step == 8,
+          "8 graph-replayed fusion steps differ from 8 eager steps")
+    res["graph_equals_eager_8_steps"] = True
+    seconds["graph_vs_eager"] = time.perf_counter() - t0
+
+    if timing:
+        t0 = time.perf_counter()
+
+        def run(n_steps, one):
+            def go():
+                for i in range(n_steps):
+                    one(i % 8)
+            return go
+        graph_run = run(16, lambda i: call(idx[i], masks[i], w[0],
+                                           a._lr_arg(cfg.lr)))
+        for name, steps, go in (("graph", 16, graph_run),
+                                ("eager", 8, run(8, eager))):
+            ms, busy, idle = timed_steps(torch, profile, DeviceType, go,
+                                         steps)
+            res[f"{name}_step"] = {"step_ms": ms, "patients_per_s":
+                                   bs * 1e3 / ms,
+                                   "device_busy_ms_per_step": busy,
+                                   "idle_share": idle}
+        res["graph_step_top_kernels"] = top_kernels(torch, profile,
+                                                    DeviceType, graph_run, 16)
+        seconds["step_timing"] = time.perf_counter() - t0
+        # one epoch over the whole cohort, graph replays, after a warm one
+        t0 = time.perf_counter()
+        tr2 = FusionTrainer(cfg, device=device)
+        st2 = tr2.init_state()
+        tr2.train_epoch(st2, dv, 1, cfg.lr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = tr2.train_epoch(st2, dv, 2, cfg.lr)
+        res["cohort_epoch_s"] = time.perf_counter() - t0
+        res["cohort_epoch_steps"] = -(-n // bs)
+        check(math.isfinite(rep["loss"]), f"cohort epoch loss {rep['loss']}")
+        del tr2, st2
+        seconds["cohort_epochs"] = time.perf_counter() - t0
+    del a, b, sa, sb, call
+
+    # cross-validation: folds 0 and 1 of the 5, 3 epochs each
+    cv = FusionTrainer(cfg, device=device)
+    logged = []
+
+    def log(msg):
+        logged.append((time.perf_counter(), msg))
+        if msg.startswith("seed 0 fold 1: test acc"):
+            cv.request_stop()
+    t0 = time.perf_counter()
+    out = cv.cross_validate(ds, log=log)
+    res["cv_seconds"] = time.perf_counter() - t0
+    train_acc = [float(m.split("train acc ")[1].split()[0])
+                 for _, m in logged if " epoch 3: train acc" in m]
+    check(out["stopped_early"] and len(out["folds"]) == 2 and
+          len(train_acc) == 2, f"CV did not stop after 2 folds: {logged}")
+    check(min(train_acc) > 0.7,
+          f"fused train accuracy {train_acc} not above 0.7")
+    res["cv_train_acc"] = train_acc
+    res["cv_test_acc"] = [f["test"]["acc_all"] for f in out["folds"]]
+    ends = [t for t, m in logged if ": test acc" in m]
+    res["cv_fold_seconds"] = [e - s for s, e in zip([t0] + ends, ends)]
+    seconds["cv"] = res["cv_seconds"]
+    res["seconds"] = seconds
+    for key in ("graph_step", "eager_step"):
+        if key in res:
+            r = res[key]
+            print(f"fusion {key.split('_')[0]} step: {r['step_ms']:.3f} "
+                  f"ms/step = {r['patients_per_s']:.1f} patients/s, idle "
+                  + ("not measured" if r["idle_share"] is None
+                     else f"{r['idle_share']:.4f}") + f" ({card})")
+    if timing:
+        print(f"fusion predictor: {res['predictor_patients_per_s']:.1f} "
+              f"patients/s at batch 512; cohort epoch ({n} patients, "
+              f"{res['cohort_epoch_steps']} steps) "
+              f"{res['cohort_epoch_s']:.3f} s ({card})")
+    print(f"fusion CV: 2 folds x 3 epochs in {res['cv_seconds']:.1f} s, "
+          f"train acc {train_acc}, test acc {res['cv_test_acc']}")
+    print("fusion " + json.dumps(res))
+    return res
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "cervical_tpu_torch")):
         print("chip_smoke.py: the cervical_tpu_torch package is not beside "
@@ -1401,6 +1622,7 @@ def main():
     # the slice's main path: K1-K3 as launched by fit; K5 by
     # augment_batch_kernels(fused=True), its one caller (warp phase)
     path_launches = timed("fit", fit_phase, torch, W, MF)
+    timed("fusion", fusion_phase, torch, card)
     path_launches["warp_photo_images"] = warp["warp_photo_images"]["launches"]
     print("seconds per phase " + json.dumps(seconds))
 

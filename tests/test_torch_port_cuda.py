@@ -684,3 +684,122 @@ def test_capture_refuses_host_uploads(cuda_device):
     with pytest.raises(RuntimeError, match="captures"):
         with torch.cuda.graph(g):
             W.augment_batch_kernels(images[0], labels[0], p, (64, 64))
+
+
+# -- the fusion classifier ------------------------------------------------------
+
+def _fusion_trainer(device, **kw):
+    from cervical_tpu_torch.config import FusionTrainConfig
+    from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
+    cfg = FusionTrainConfig(**{"in_features": 64, "hidden": 128,
+                               "batch_size": 8, "lr": 1e-3, **kw})
+    return FusionTrainer(cfg, device=device)
+
+
+def _fusion_states_equal(a, b):
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    if not all(torch.equal(v, sb[k]) for k, v in sa.items()):
+        return False
+    xa = a.opt_state["params"].state_dict()["state"]
+    xb = b.opt_state["params"].state_dict()["state"]
+    return xa.keys() == xb.keys() and all(
+        torch.equal(torch.as_tensor(xa[i][k]), torch.as_tensor(xb[i][k]))
+        for i in xa for k in xa[i])
+
+
+@pytest.mark.parametrize("do_step", [False, True])
+def test_fusion_graph_step_equals_eager_step(cuda_device, do_step):
+    """The train step replayed from its CUDA graph (dropout on, the
+    generators registered) equals the eager step on a twin state bit for
+    bit: losses, predictions, params, Adam state.  Without ``do_step``
+    nothing moves and Adam has no state."""
+    from cervical_tpu_torch.data.fusion_data import make_synthetic_fusion
+    from cervical_tpu_torch.data.masks import generate_modal_masks
+    ds = make_synthetic_fusion(num_patients=20, feature_dim=64, seed=2)
+    ga, gb = _fusion_trainer("cuda"), _fusion_trainer("cuda")
+    sa, sb = ga.init_state(), gb.init_state()
+    dev = ga._device_cohort(ds)
+    call = ga._batch_step(sa, dev["feats"], dev["labels"], 8, do_step)
+    step = gb.train_step_fn()
+    masks = generate_modal_masks(torch.Generator("cuda").manual_seed(1),
+                                 4 * 8, 4).reshape(4, 8, 4)
+    w = torch.ones(8, device="cuda")
+    w[5:] = 0
+    for i in range(4):
+        idx = torch.randint(0, 20, (8,), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(i))
+        ma = call(idx, masks[i], w, ga._lr_arg(1e-3))
+        mb = step(sb, {m: v.index_select(0, idx)
+                       for m, v in dev["feats"].items()},
+                  dev["labels"].index_select(0, idx), masks[i], w,
+                  gb._lr_arg(1e-3), do_step)
+        for k in ma:
+            assert torch.equal(ma[k], mb[k]), (i, k)
+    assert sa.step == sb.step == (4 if do_step else 0)
+    assert _fusion_states_equal(sa, sb)
+    assert bool(sa.opt_state["params"].state) == do_step
+
+
+def test_fusion_epoch_and_cv_on_card(cuda_device, tmp_path):
+    """The default epoch (graph replays) learns; cross_validate runs to its
+    files on the card; the graphs were captured once per (batch, do_step)
+    of a fold."""
+    from cervical_tpu_torch.data.fusion_data import make_synthetic_fusion
+    tr = _fusion_trainer("cuda", hidden=256, epochs=3, kfold=3, lr=5e-4,
+                         batch_size=16)
+    ds = make_synthetic_fusion(num_patients=60, feature_dim=64, noise=0.3)
+    st = tr.init_state()
+    accs = [tr.train_epoch(st, ds, e, 5e-4)["acc_all"] for e in range(5)]
+    assert accs[-1] > 0.7, accs
+    assert set(tr._graphs) == {(16, False), (16, True)}
+    res = tr.cross_validate(ds, log=lambda *a: None, save_dir=str(tmp_path))
+    assert len(res["folds"]) == 3
+    assert (tmp_path / "best_seed0_fold2.npz").exists()
+
+
+def test_fusion_predictor_on_card_matches_cpu(cuda_device):
+    from cervical_tpu_torch.config import FusionTrainConfig
+    from cervical_tpu_torch.data.fusion_data import make_synthetic_fusion
+    from cervical_tpu_torch.inference.fusion_predictor import FusionPredictor
+    cfg = FusionTrainConfig()  # full width: 1024 -> 512, 4 modalities
+    st = _fusion_trainer("cpu", in_features=1024, hidden=512).init_state()
+    ds = make_synthetic_fusion(num_patients=40, feature_dim=1024, seed=4)
+    present = ds["present"].copy()
+    present[::3, 1] = False
+    kw = dict(batch_size=16)
+    cpu = FusionPredictor(cfg, st.model.state_dict(), device="cpu", **kw)
+    card = FusionPredictor(cfg, st.model.state_dict(), device="cuda", **kw)
+    a = cpu.predict_proba(ds["feats"], present)
+    b = card.predict_proba(ds["feats"], present)
+    for k in a:
+        assert float(np.abs(a[k] - b[k]).max()) < 1e-4, k
+    assert card.get_throughput(batch_size=64, iters=2) > 0
+
+
+def test_fusion_cv_resume_on_card_equals_uninterrupted(cuda_device, tmp_path):
+    """A CV stopped after fold 0 and resumed in a fresh trainer gives the
+    uninterrupted run's folds on the card too: the graphs replay the
+    fold-keyed streams exactly."""
+    from cervical_tpu_torch.data.fusion_data import make_synthetic_fusion
+    ds = make_synthetic_fusion(num_patients=45, feature_dim=64, seed=3)
+    kw = dict(epochs=2, kfold=3, epoch0_no_step=False)
+    full = _fusion_trainer("cuda", **kw).cross_validate(
+        ds, log=lambda *a: None, save_dir=str(tmp_path / "full"))
+    tr = _fusion_trainer("cuda", **kw)
+
+    def stop(msg):
+        if ": test acc" in msg:
+            tr.request_stop()
+    part = tr.cross_validate(ds, log=stop, save_dir=str(tmp_path / "part"))
+    assert part["stopped_early"] and len(part["folds"]) == 1
+    resumed = _fusion_trainer("cuda", **kw).cross_validate(
+        ds, log=lambda *a: None, save_dir=str(tmp_path / "part"))
+    for a, b in zip(full["folds"], resumed["folds"]):
+        assert a["val_acc"] == b["val_acc"]
+        assert a["test"]["loss"] == b["test"]["loss"]
+        assert [e["loss"] for e in a["epoch_test"]] == \
+            [e["loss"] for e in b["epoch_test"]]
+    for f in range(3):
+        za = np.load(tmp_path / "full" / f"best_seed0_fold{f}.npz")
+        zb = np.load(tmp_path / "part" / f"best_seed0_fold{f}.npz")
+        assert all(np.array_equal(za[k], zb[k]) for k in za.files)

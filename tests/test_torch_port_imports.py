@@ -37,7 +37,7 @@ def test_port_imports_no_jax_or_reference_package():
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 33, out.stdout
+    assert n_modules >= 44, out.stdout
 
 
 def test_port_sources_name_no_reference_package():
@@ -77,6 +77,56 @@ def test_training_slice_modules_import_alone():
         " cervical_tpu_torch.train.torch_import, cervical_tpu_torch.train_seg,"
         " cervical_tpu_torch.utils.seeding, cervical_tpu_torch.utils.logging\n"
         "assert W._lib_handle is None\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_fusion_entry_points_default_to_cuda():
+    from cervical_tpu_torch import predict_fusion
+    from cervical_tpu_torch.inference.fusion_predictor import FusionPredictor
+    from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
+    from cervical_tpu_torch.train_fusion import build_config
+    assert inspect.signature(FusionTrainer).parameters["device"].default == \
+        "cuda"
+    for fn in (FusionPredictor, FusionPredictor.from_npz):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    assert "device" in predict_fusion._CLI_KEYS
+    assert build_config([])[-1] == "cuda"
+
+
+def test_fusion_entry_points_refuse_without_card():
+    """No fallback: on a host without CUDA the trainer and the predictor
+    at their default device raise instead of running on the CPU."""
+    import pytest
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the entry points run there")
+    from cervical_tpu_torch.config import FusionTrainConfig
+    from cervical_tpu_torch.inference.fusion_predictor import FusionPredictor
+    from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
+    cfg = FusionTrainConfig(in_features=8, hidden=64)
+    with pytest.raises((RuntimeError, AssertionError)):
+        FusionTrainer(cfg)
+    sd = FusionTrainer(cfg, device="cpu").init_state().model.state_dict()
+    with pytest.raises((RuntimeError, AssertionError)):
+        FusionPredictor(cfg, sd)
+
+
+def test_fusion_slice_modules_import_alone():
+    """Every module of the fusion slice is importable without JAX."""
+    code = (
+        "import sys\n"
+        "import cervical_tpu_torch.models.fusion, cervical_tpu_torch.models.mae,"
+        " cervical_tpu_torch.models.layers, cervical_tpu_torch.ops.graph,"
+        " cervical_tpu_torch.data.masks, cervical_tpu_torch.data.splits,"
+        " cervical_tpu_torch.data.fusion_data,"
+        " cervical_tpu_torch.inference.fusion_predictor,"
+        " cervical_tpu_torch.train.fusion_trainer,"
+        " cervical_tpu_torch.predict_fusion, cervical_tpu_torch.train_fusion\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "sys.exit(1 if bad else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,

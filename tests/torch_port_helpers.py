@@ -87,3 +87,35 @@ def scaled_atol(ref, floor=5e-4, rel=2e-4):
     """Absolute tolerance for fp32 logits after ~100 convs: both stacks
     round in fp32 in another order, so the error grows with the scale."""
     return max(floor, rel * float(np.abs(ref).max()))
+
+
+FUSION_IN, FUSION_HIDDEN = 32, 64  # tests/test_torch_fusion_parity.py's
+
+
+def fusion_feats(mods, b, seed, in_features=FUSION_IN):
+    """Seeded numpy node features ``{m: (b, nodes, in_features)}``."""
+    rng = np.random.default_rng(seed)
+    return {m: rng.normal(size=(b, 4 if m == "cli" else 16, in_features)
+                          ).astype(np.float32) for m in mods}
+
+
+def fusion_pair(mods, seed=0, in_features=FUSION_IN, hidden=FUSION_HIDDEN,
+                mix=True):
+    """(JAX ``FusionMAE``, its numpy params initialised from ``seed``, the
+    port's ``FusionMAE`` in eval mode holding the same weights through
+    ``fusion_from_flax``)."""
+    import jax
+    import jax.numpy as jnp
+    from cervical_tpu.models.fusion import FusionMAE as JFusion
+    from cervical_tpu_torch.models.fusion import FusionMAE
+    from cervical_tpu_torch.train.flax_import import fusion_from_flax
+
+    jm = JFusion(modalities=tuple(mods), in_features=in_features,
+                 hidden=hidden, mix=mix)
+    feats = {m: jnp.asarray(v) for m, v in
+             fusion_feats(mods, 1, 0, in_features).items()}
+    params = jax.tree_util.tree_map(
+        np.asarray, jm.init(jax.random.PRNGKey(seed), feats)["params"])
+    pm = FusionMAE(tuple(mods), in_features, hidden, mix=mix).eval()
+    pm.load_state_dict(fusion_from_flax(params), strict=True)
+    return jm, params, pm
