@@ -30,9 +30,11 @@ from typing import Dict, Tuple
 import torch
 import torch.nn as nn
 
-from cervical_tpu_torch.models.layers import (Dropout, GatedAttentionPool,
-                                              GraphNorm, MixerBlock,
-                                              init_linear, linear)
+from cervical_tpu_torch.models.layers import (DropoutMasks,
+                                              GatedAttentionPool, GraphNorm,
+                                              KeyedDropout, MixerBlock,
+                                              dropout_key, init_linear,
+                                              linear, set_compute_dtype)
 from cervical_tpu_torch.models.mae import TokenMAE
 from cervical_tpu_torch.ops import graph as graph_ops
 
@@ -80,8 +82,16 @@ class FusionMAE(nn.Module):
       (training: T-1 per row, ``data.masks.generate_modal_masks``; eval:
       none, or the absent slots, ``data.masks.imputation_masks``).
 
-    Train mode (``model.train()``) draws dropout masks from each dropout's
-    own generator, seeded from ``dropout_seed``.  Returns a dict:
+    ``dtype`` (None or f32, or bf16): the compute dtype, by flax's rule
+    (``models/layers.py``); params stay f32, logits come in the dtype.
+
+    Train mode (``model.train()``) draws each dropout's mask as a hash of
+    the buffer ``rng`` = ``[dropout_seed, count]`` (int64, not in the
+    ``state_dict``), the layer and the element; each train-mode forward
+    adds 1 to the count, as a generator would advance.  The first forward
+    of given input shapes hashes layer by layer and notes the layers and
+    sizes; later ones draw all masks at once (:class:`DropoutMasks`), the
+    same bits.  Returns a dict:
     ``logits`` (per-head dict with "all"), ``one_x``, ``multi_x``, ``fea``,
     ``mae_out`` (None for one modality), ``mae_labels``, ``att1``, ``att2``.
     """
@@ -90,7 +100,7 @@ class FusionMAE(nn.Module):
                  in_features: int = 1024, hidden: int = 512,
                  num_classes: int = 4, dropout: float = 0.3, mix: bool = True,
                  image_grid=(4, 4), cli_nodes: int = 4,
-                 dropout_seed: int = 0):
+                 dropout_seed: int = 0, dtype=None):
         super().__init__()
         self.modalities = tuple(modalities)
         self.in_features = in_features
@@ -100,27 +110,34 @@ class FusionMAE(nn.Module):
                 self.modalities, image_grid, cli_nodes).items()):
             self.register_buffer(f"adj_{m}", torch.from_numpy(a),
                                  persistent=False)
-            s = dropout_seed + 3 * i
             self.add_module(f"{m}_gnn_2", DenseSAGEConv(in_features, hidden))
             self.add_module(f"{m}_relu_2", nn.Sequential(
-                nn.ReLU(), GraphNorm(hidden), Dropout(dropout, s)))
+                nn.ReLU(), GraphNorm(hidden), KeyedDropout(dropout)))
             self.add_module(f"mpool_{m}", GatedAttentionPool(hidden))
             self.add_module(f"mpool_{m}_2", GatedAttentionPool(hidden))
             self.add_module(f"lin1_{m}", linear(hidden, hidden // 4))
             self.add_module(f"norm1_{m}", GraphNorm(hidden // 4))
-            self.add_module(f"drop1_{m}", Dropout(dropout, s + 1))
+            self.add_module(f"drop1_{m}", KeyedDropout(dropout))
             self.add_module(f"lin2_{m}", linear(hidden // 4, hidden // 16))
             self.add_module(f"norm2_{m}", GraphNorm(hidden // 16))
-            self.add_module(f"drop2_{m}", Dropout(dropout, s + 2))
+            self.add_module(f"drop2_{m}", KeyedDropout(dropout))
             self.add_module(f"lin3_{m}", linear(hidden // 16, hidden // 64))
             self.add_module(f"classifier_{m}",
                             linear(hidden // 64, num_classes))
         self.classifier = linear(hidden // 64, num_classes)
         if t > 1:
             self.mae = TokenMAE(embed_dim=hidden, decoder_num_classes=hidden,
-                                num_tokens=t, seed=dropout_seed + 3 * t)
+                                num_tokens=t)
             if mix:
                 self.mix = MixerBlock(t, hidden)
+        self.register_buffer("rng", torch.tensor([dropout_seed, 0]),
+                             persistent=False)
+        self._dropouts = [m for m in self.modules()
+                          if isinstance(m, KeyedDropout)]
+        for i, m in enumerate(self._dropouts):
+            m.layer = i
+        self._masks = {}  # DropoutMasks per (device, input shapes, rates)
+        set_compute_dtype(self, dtype)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "FusionMAE":
@@ -140,6 +157,35 @@ class FusionMAE(nn.Module):
 
     def forward(self, node_feats: Dict[str, torch.Tensor], present=None,
                 mae_mask=None):
+        if not self.training:
+            return self._forward(node_feats, present, mae_mask)
+        key = dropout_key(self.rng)
+        with torch.no_grad():
+            self.rng[1:].add_(1)
+        x0 = node_feats[self.modalities[0]]
+        sig = (x0.device, tuple(tuple(node_feats[m].shape)
+                                for m in self.modalities),
+               tuple(m.p for m in self._dropouts))
+        masks, seen = self._masks.get(sig), None
+        if masks is None:
+            seen = []
+            for m in self._dropouts:
+                m.key, m.seen = key, seen
+        else:
+            masks.assign(key)
+        try:
+            out = self._forward(node_feats, present, mae_mask)
+        finally:
+            for m in self._dropouts:
+                m.key = m.keep = m.seen = None
+        # under a capture the index kernels would only be recorded, not run:
+        # the next forward notes the sizes again
+        if seen and not (x0.is_cuda
+                         and torch.cuda.is_current_stream_capturing()):
+            self._masks[sig] = DropoutMasks(seen, x0.device)
+        return out
+
+    def _forward(self, node_feats, present, mae_mask):
         mods = self.modalities
         t = len(mods)
         x0 = node_feats[mods[0]]

@@ -1,15 +1,28 @@
 """Shared building blocks of the fusion model — port of
 ``cervical_tpu/models/layers.py`` (reference: ``MultiModal Prediction/
-Four_Modal/mae_utils.py`` and ``my_mae_model.py``), and the port's
-seeded :class:`Dropout`.
+Four_Modal/mae_utils.py`` and ``my_mae_model.py``), the segmentation
+head's seeded :class:`Dropout` and the fusion model's
+:class:`KeyedDropout`.
 
 Submodules carry the reference torch model's names (``gate_nn.0``,
 ``attn.qkv``, ``mlp.fc1``, ``mix_mip_1.0``), so its ``state_dict`` loads
 as is and the JAX package's ``convert_fusion`` reads the port's.  Each
-``nn.Linear`` records the initialiser the JAX package gives it
+:class:`Linear` records the initialiser the JAX package gives it
 (:func:`init_linear`): flax's lecun-normal kernels and zero biases, and
 xavier-uniform inside the MAE (``_init_weights``, my_mae_model.py:112-118,
 182-188).
+
+The compute dtype follows flax's rule as the JAX modules use it
+(:func:`set_compute_dtype`): params stay f32; a :class:`Linear` given a
+dtype casts its input, kernel and bias to it and returns it (flax's
+``Dense(dtype=...)``); :class:`GraphNorm` computes in f32 and returns the
+dtype; the attention scores, the gate softmax and the LayerNorms (flax's
+``LayerNorm`` without a dtype) compute and return f32.
+
+The fusion model's dropouts are :class:`KeyedDropout`: a mask is a hash of
+(a key the model derives from its seed and its count of train-mode
+forwards, the layer, the element), so ``torch.func.vmap`` can batch it
+over stacked models and a CUDA graph replays it without a generator.
 """
 
 from __future__ import annotations
@@ -51,18 +64,148 @@ class Dropout(nn.Dropout):
         return x * keep * (1.0 / (1.0 - self.p))
 
 
+_M32 = 0xFFFFFFFF
+
+
+def mix32(x):
+    """A bijection of the 32-bit integers, held in int64 tensors (or Python
+    ints) in ``[0, 2**32)``: C. Wellons' ``lowbias32`` shifts with two odd
+    multipliers below 2**31, so no product leaves int64's range."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def dropout_key(rng):
+    """The 32-bit dropout key of one forward from a model's ``rng`` buffer
+    ``[seed, count]`` (int64)."""
+    return mix32(((rng[0] * 0x9E3779B1) & _M32) ^ (rng[1] & _M32))
+
+
+def _keep_threshold(p: float) -> int:
+    return round((1.0 - p) * 2.0 ** 32)
+
+
+class KeyedDropout(nn.Dropout):
+    """Dropout whose mask is a counter-based hash: element ``i`` is kept
+    when ``mix32(i ^ mix32(layer + 1) ^ key) < (1 - p) * 2**32``, with
+    ``key`` set by the owning model for the forward (:func:`dropout_key`)
+    and ``layer`` this dropout's index in the model.  No generator: the
+    same (seed, count) gives the same masks eagerly, in a CUDA graph and
+    under ``torch.func.vmap`` (a batched key gives each stacked model its
+    own masks).  (JAX's dropout bits differ anyway: no parity
+    constraint.)
+
+    For a train-mode forward the model sets either ``keep``, this layer's
+    slice of the masks it drew for all its dropouts at once
+    (:class:`DropoutMasks`), or ``key`` alone: the layer then hashes its
+    own mask and, if ``seen`` is a list, appends ``(self, numel)`` to it."""
+
+    def __init__(self, p: float, layer: int = 0):
+        super().__init__(p)
+        self.layer = layer
+        self.key = self.keep = self.seen = None
+
+    def salted_index(self, n: int, device) -> torch.Tensor:
+        """``i ^ mix32(layer + 1)`` for the first ``n`` elements (int64)."""
+        return torch.arange(n, device=device) ^ mix32(self.layer + 1)
+
+    def forward(self, x):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = self.keep
+        if keep is None:
+            if self.key is None:
+                raise RuntimeError("KeyedDropout in train mode needs the key "
+                                   "its model sets for the forward")
+            keep = mix32(self.salted_index(x.numel(), x.device) ^ self.key
+                         ) < _keep_threshold(self.p)
+            if self.seen is not None:
+                self.seen.append((self, x.numel()))
+        return torch.where(keep.view(x.shape), x / (1.0 - self.p), 0.0)
+
+
+class DropoutMasks:
+    """The masks of every train-mode :class:`KeyedDropout` of a model, drawn
+    in one pass: one hash over the concatenated elements of all the layers
+    a forward passed (``seen``, in order), each layer then given its slice.
+    The same bits as the layers' own hashes, in ~12 kernels for all of
+    them instead of ~14 each.  The index and threshold vectors are made
+    once, on ``device``."""
+
+    def __init__(self, seen, device):
+        self.slices, index, threshold, at = [], [], [], 0
+        for layer, n in seen:
+            index.append(layer.salted_index(n, device))
+            threshold.append(torch.full((n,), _keep_threshold(layer.p),
+                                        dtype=torch.int64, device=device))
+            self.slices.append((layer, at, n))
+            at += n
+        self.index = torch.cat(index)
+        self.threshold = torch.cat(threshold)
+
+    def assign(self, key) -> None:
+        """Set each layer's ``keep`` for the forward keyed ``key``."""
+        keep = mix32(self.index ^ key) < self.threshold
+        for layer, at, n in self.slices:
+            layer.keep = keep[at:at + n]
+
+
 # flax's lecun_normal: a normal truncated at +-2 sigma, its scale corrected
 # for the truncation
 _TRUNC_CORRECTION = 0.87962566103423978
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` with flax ``Dense``'s dtype rule: with ``dtype`` set,
+    the input, kernel and bias are cast to it, the product is returned in
+    it and the bias added in it; ``dtype`` None is ``nn.Linear``.  The
+    input's leading axes are folded into one, as ``F.linear`` folds them:
+    under ``torch.func.vmap`` with stacked weights the product is then one
+    batched GEMM, where vmap's rule for an unfolded 3-D input would expand
+    the weight over its second axis."""
+
+    dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        lead = x.shape[:-1]
+        x = x.reshape(-1, x.shape[-1])
+        if self.dtype is None:
+            y = F.linear(x, self.weight, self.bias)
+        else:
+            y = F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+            if self.bias is not None:
+                y = y + self.bias.to(self.dtype)
+        return y.reshape(*lead, y.shape[-1])
+
+
 def linear(inp: int, out: int, bias: bool = True,
-           init: str = "lecun") -> nn.Linear:
-    """``nn.Linear`` tagged with its JAX initialiser (``"lecun"`` or
+           init: str = "lecun") -> Linear:
+    """:class:`Linear` tagged with its JAX initialiser (``"lecun"`` or
     ``"xavier"``), applied by :func:`init_linear`."""
-    lin = nn.Linear(inp, out, bias=bias)
+    lin = Linear(inp, out, bias=bias)
     lin.jax_init = init
     return lin
+
+
+def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]):
+    """Give every :class:`Linear` and :class:`GraphNorm` in ``module`` the
+    compute dtype (None or f32: f32 throughout), as the JAX modules pass
+    ``dtype`` down to each ``Dense`` and ``GraphNorm``."""
+    if dtype == torch.float32:
+        dtype = None
+    for m in module.modules():
+        if isinstance(m, (Linear, GraphNorm)):
+            m.dtype = dtype
+    return module
+
+
+def layer_norm(norm: nn.LayerNorm, x):
+    """flax's ``LayerNorm`` without a dtype: statistics, affine and result in
+    f32 whatever the input's dtype."""
+    return norm(x.to(torch.float32))
 
 
 @torch.no_grad()
@@ -111,6 +254,8 @@ class GraphNorm(nn.Module):
     per-channel affine.  ``nn.LayerNorm`` normalises rows and puts eps
     inside; on a 1-D vector per sample the two differ only by eps."""
 
+    dtype: Optional[torch.dtype] = None  # of the result; None: the input's
+
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
@@ -123,7 +268,7 @@ class GraphNorm(nn.Module):
         mean = xf.mean(dim=dims, keepdim=True)
         var = xf.var(dim=dims, unbiased=False, keepdim=True)
         y = (xf - mean) / (torch.sqrt(var) + self.eps)
-        return (y * self.weight + self.bias).to(x.dtype)
+        return (y * self.weight + self.bias).to(self.dtype or x.dtype)
 
 
 class GatedAttentionPool(nn.Module):
@@ -149,12 +294,11 @@ class Mlp(nn.Module):
     """Transformer MLP (mae_utils.py:38-55): fc1 -> exact GELU -> fc2 ->
     dropout."""
 
-    def __init__(self, dim: int, hidden: int, out: int, drop: float = 0.0,
-                 seed: int = 0):
+    def __init__(self, dim: int, hidden: int, out: int, drop: float = 0.0):
         super().__init__()
         self.fc1 = linear(dim, hidden, init="xavier")
         self.fc2 = linear(hidden, out, init="xavier")
-        self.drop = Dropout(drop, seed)
+        self.drop = KeyedDropout(drop)
 
     def forward(self, x):
         return self.drop(self.fc2(F.gelu(self.fc1(x), approximate="none")))
@@ -170,27 +314,31 @@ class ViTSelfAttention(nn.Module):
     (``F.scaled_dot_product_attention`` does not keep it)."""
 
     def __init__(self, dim: int, num_heads: int = 8, attn_drop: float = 0.0,
-                 proj_drop: float = 0.0, seed: int = 0):
+                 proj_drop: float = 0.0):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         inner = self.head_dim * num_heads
         self.scale = self.head_dim ** -0.5
         self.qkv = linear(dim, inner * 3, bias=False, init="xavier")
-        self.attn_drop = Dropout(attn_drop, seed)
+        self.attn_drop = KeyedDropout(attn_drop)
         self.proj = linear(inner, dim, init="xavier")
-        self.proj_drop = Dropout(proj_drop, seed + 1)
+        self.proj_drop = KeyedDropout(proj_drop)
 
     def forward(self, x, key_mask=None):
         b, n, _ = x.shape
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, hd)
-        attn = torch.einsum("bqhd,bkhd->bhqk", q * self.scale, k)
+        # scores in f32 from the compute dtype's q, k (JAX's
+        # preferred_element_type=f32); products of bf16 values are exact
+        attn = torch.einsum("bqhd,bkhd->bhqk", (q * self.scale).float(),
+                            k.float())
         if key_mask is not None:
             attn = torch.where(key_mask[:, None, None, :], attn,
                                torch.full_like(attn, -1e9))
-        attn = self.attn_drop(torch.softmax(attn, dim=-1))
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, n, -1)
+        attn = self.attn_drop(torch.softmax(attn, dim=-1).to(x.dtype))
+        out = torch.einsum("bhqk,bkhd->bqhd", attn,
+                           v.to(attn.dtype)).reshape(b, n, -1)
         return self.proj_drop(self.proj(out))
 
 
@@ -202,19 +350,19 @@ class ViTBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  drop: float = 0.0, attn_drop: float = 0.0,
-                 drop_path_rate: float = 0.0, seed: int = 0):
+                 drop_path_rate: float = 0.0):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = ViTSelfAttention(dim, num_heads, attn_drop, drop, seed)
+        self.attn = ViTSelfAttention(dim, num_heads, attn_drop, drop)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop, seed + 2)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop)
         self.drop_path_rate = drop_path_rate
 
     def forward(self, x, key_mask=None):
-        x = x + drop_path(self.attn(self.norm1(x), key_mask),
+        x = x + drop_path(self.attn(layer_norm(self.norm1, x), key_mask),
                           self.drop_path_rate, self.training)
-        return x + drop_path(self.mlp(self.norm2(x)), self.drop_path_rate,
-                             self.training)
+        return x + drop_path(self.mlp(layer_norm(self.norm2, x)),
+                             self.drop_path_rate, self.training)
 
 
 class MixerBlock(nn.Module):

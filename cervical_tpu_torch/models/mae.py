@@ -20,17 +20,15 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from cervical_tpu_torch.models.layers import (ViTBlock, linear,
+from cervical_tpu_torch.models.layers import (ViTBlock, layer_norm, linear,
                                               sinusoid_encoding_table)
 
 
-def _blocks(dim, depth, num_heads, mlp_ratio, drop, attn_drop, drop_path,
-            seed):
+def _blocks(dim, depth, num_heads, mlp_ratio, drop, attn_drop, drop_path):
     # stochastic-depth decay linspace(0, rate, depth): [0.0] at depth 1
     return nn.ModuleList(
         ViTBlock(dim, num_heads, mlp_ratio, drop, attn_drop,
-                 0.0 if depth == 1 else drop_path * i / (depth - 1),
-                 seed + 4 * i)
+                 0.0 if depth == 1 else drop_path * i / (depth - 1))
         for i in range(depth))
 
 
@@ -42,21 +40,21 @@ class MAEEncoder(nn.Module):
     def __init__(self, embed_dim: int = 512, depth: int = 1,
                  num_heads: int = 12, mlp_ratio: float = 4.0,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.3,
-                 drop_path_rate: float = 0.3, num_tokens: int = 4,
-                 seed: int = 0):
+                 drop_path_rate: float = 0.3, num_tokens: int = 4):
         super().__init__()
         self.patch_embed = linear(embed_dim, embed_dim, init="xavier")
         self.register_buffer("pos_embed", torch.from_numpy(
             sinusoid_encoding_table(num_tokens, embed_dim)), persistent=False)
         self.blocks = _blocks(embed_dim, depth, num_heads, mlp_ratio,
-                              drop_rate, attn_drop_rate, drop_path_rate, seed)
+                              drop_rate, attn_drop_rate, drop_path_rate)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
 
     def forward(self, tokens, visible):
-        x = self.patch_embed(tokens) + self.pos_embed.to(tokens.dtype)
+        x = self.patch_embed(tokens)
+        x = x + self.pos_embed.to(x.dtype)
         for blk in self.blocks:
             x = blk(x, key_mask=visible)
-        return self.norm(x)
+        return layer_norm(self.norm, x)
 
 
 class MAEDecoder(nn.Module):
@@ -67,17 +65,17 @@ class MAEDecoder(nn.Module):
     def __init__(self, embed_dim: int = 512, num_classes: int = 512,
                  depth: int = 1, num_heads: int = 8, mlp_ratio: float = 4.0,
                  drop_rate: float = 0.0, attn_drop_rate: float = 0.3,
-                 drop_path_rate: float = 0.3, seed: int = 0):
+                 drop_path_rate: float = 0.3):
         super().__init__()
         self.blocks = _blocks(embed_dim, depth, num_heads, mlp_ratio,
-                              drop_rate, attn_drop_rate, drop_path_rate, seed)
+                              drop_rate, attn_drop_rate, drop_path_rate)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
         self.head = linear(embed_dim, num_classes, init="xavier")
 
     def forward(self, x):
         for blk in self.blocks:
             x = blk(x)
-        return self.head(self.norm(x))
+        return self.head(layer_norm(self.norm, x))
 
 
 class TokenMAE(nn.Module):
@@ -85,20 +83,18 @@ class TokenMAE(nn.Module):
     decoder (``PretrainVisionTransformer.forward``, my_mae_model.py:308-335).
     ``tokens`` (B, T, D); ``mask`` (B, T) bool, True = hidden from the
     encoder and rebuilt from the mask token.  Returns (B, T, D)
-    reconstructions in canonical token order.  ``seed``: the first of the
-    dropouts' seeds (the encoder's from ``seed``, the decoder's from
-    ``seed + 8``)."""
+    reconstructions in canonical token order."""
 
     def __init__(self, embed_dim: int = 512, decoder_num_classes: int = 512,
                  encoder_depth: int = 1, decoder_depth: int = 1,
                  encoder_num_heads: int = 12, decoder_num_heads: int = 8,
                  mlp_ratio: float = 4.0, drop_rate: float = 0.0,
                  attn_drop_rate: float = 0.3, drop_path_rate: float = 0.3,
-                 num_tokens: int = 4, seed: int = 0):
+                 num_tokens: int = 4):
         super().__init__()
         self.encoder = MAEEncoder(embed_dim, encoder_depth, encoder_num_heads,
                                   mlp_ratio, drop_rate, attn_drop_rate,
-                                  drop_path_rate, num_tokens, seed)
+                                  drop_path_rate, num_tokens)
         self.encoder_to_decoder = linear(embed_dim, embed_dim, bias=False,
                                          init="xavier")
         # trunc_normal_(std=.02, a=-std, b=std): the reference's wrapper
@@ -108,8 +104,7 @@ class TokenMAE(nn.Module):
             sinusoid_encoding_table(num_tokens, embed_dim)), persistent=False)
         self.decoder = MAEDecoder(embed_dim, decoder_num_classes,
                                   decoder_depth, decoder_num_heads, mlp_ratio,
-                                  drop_rate, attn_drop_rate, drop_path_rate,
-                                  seed + 8)
+                                  drop_rate, attn_drop_rate, drop_path_rate)
 
     @torch.no_grad()
     def init_mask_token(self, generator: torch.Generator) -> None:

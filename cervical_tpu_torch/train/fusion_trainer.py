@@ -24,7 +24,14 @@ variants).
 * Each fold's streams (weights, dropouts, shuffles, MAE masks) come from
   seeds keyed by (start_seed, seed, fold), so a resumed CV repeats an
   uninterrupted one exactly.  They are torch's streams, not JAX's
-  (ROADMAP §3).
+  (ROADMAP §3).  A dropout mask is a hash of the fold's dropout seed, its
+  count of train steps, the layer and the element (``models/layers.py``).
+* ``cross_validate(vmap_folds=True)`` trains up to ``vmap_group`` (seed,
+  fold) pairs at once, fold-stacked under ``torch.func.vmap``
+  (``train/fold_stack.py``), each pair on its own streams: per pair the
+  same results as the sequential engine.
+* ``dtype="bfloat16"`` computes in bf16 by flax's rule (params, Adam and
+  the loss stay f32).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from cervical_tpu_torch.data.fusion_data import subset
 from cervical_tpu_torch.data.masks import (generate_modal_masks,
                                            imputation_masks)
 from cervical_tpu_torch.models.fusion import IMAGE_MODALITIES, FusionMAE
+from cervical_tpu_torch.train import fold_stack as FS
 from cervical_tpu_torch.train.graphs import GraphedCall
 from cervical_tpu_torch.train.schedules import fusion_step_decay
 from cervical_tpu_torch.train.seg_trainer import TrainState
@@ -63,21 +71,21 @@ def _to_jsonable(x):
     return x
 
 
-def check_dtype(cfg: FusionTrainConfig) -> None:
-    if cfg.dtype == "bfloat16":
-        raise NotImplementedError(
-            "dtype='bfloat16' is not ported yet for the fusion model "
-            "(ROADMAP §1, with the vmapped-folds engine): use float32")
-    if cfg.dtype != "float32":
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: FusionTrainConfig) -> torch.dtype:
+    if cfg.dtype not in _DTYPES:
         raise ValueError(f"unknown dtype {cfg.dtype!r}")
+    return _DTYPES[cfg.dtype]
 
 
 def build_model(cfg: FusionTrainConfig, dropout_seed: int = 0) -> FusionMAE:
-    check_dtype(cfg)
     return FusionMAE(modalities=tuple(cfg.modalities),
                      in_features=cfg.in_features, hidden=cfg.hidden,
                      num_classes=cfg.num_classes, dropout=cfg.dropout,
-                     mix=cfg.mix, dropout_seed=dropout_seed)
+                     mix=cfg.mix, dropout_seed=dropout_seed,
+                     dtype=compute_dtype(cfg))
 
 
 def head_weights(cfg: FusionTrainConfig) -> Dict[str, float]:
@@ -94,31 +102,24 @@ def stream_seeds(*key: int) -> np.ndarray:
     return np.random.SeedSequence(list(key)).generate_state(4)
 
 
-def make_train_step(cfg: FusionTrainConfig):
-    """``step(state, feats, labels, mae_mask, weights, lr, do_step) ->
-    {"loss", "ce_all", "preds"}``: one train step in place on ``state``
-    (forward in train mode, the weighted multi-head loss + MAE-MSE,
-    backward, and with ``do_step`` Adam).  ``weights`` (B,): weight-0 rows
-    count as absent.  ``preds`` (1 + T, B): the argmax of the heads
-    ``["all", *modalities]``.  Metrics are unsynced tensors."""
+def make_loss(cfg: FusionTrainConfig):
+    """``loss(out, labels, mae_mask, weights) -> (total, ce_all, preds)``:
+    the weighted multi-head CE + MAE-MSE of a train-mode forward's outputs,
+    in f32.  ``weights`` (B,): weight-0 rows count as absent.  ``preds``
+    (1 + T, B): the argmax of the heads ``["all", *modalities]``."""
     hw = head_weights(cfg)
     mods = tuple(cfg.modalities)
     heads = ("all",) + mods
 
-    def step(state: TrainState, feats, labels, mae_mask, weights, lr,
-             do_step: bool):
-        model = state.model
-        model.train()
-        opt = state.opt_state["params"]
-        opt.zero_grad(set_to_none=True)
-        out = model(feats, mae_mask=mae_mask)
+    def loss(out, labels, mae_mask, weights):
         mae_mse = None
         if cfg.add_mse_loss_of_mae and len(mods) > 1:
             # factor * per-sample masked mse (losses.masked_mae_mse of
             # each row), weighted mean over samples
             m = mae_mask[..., None].to(torch.float32)
-            se = torch.sum((out["mae_out"] - out["mae_labels"]) ** 2 * m,
-                           dim=(-2, -1))
+            d = (out["mae_out"].to(torch.float32)
+                 - out["mae_labels"].to(torch.float32))
+            se = torch.sum(d ** 2 * m, dim=(-2, -1))
             per = se / torch.clamp(torch.sum(m, dim=(-2, -1))
                                    * out["mae_out"].shape[-1], min=1.0)
             w = weights.to(torch.float32)
@@ -127,14 +128,34 @@ def make_train_step(cfg: FusionTrainConfig):
         total, parts = losses.fusion_multihead_loss(
             out["logits"], labels, hw, mae_mse, mse_factor=5.0,
             num_micro_batches=1, sample_weights=weights)
+        preds = torch.stack([out["logits"][k].argmax(dim=-1) for k in heads])
+        return total, parts["all"], preds
+
+    return loss
+
+
+def make_train_step(cfg: FusionTrainConfig):
+    """``step(state, feats, labels, mae_mask, weights, lr, do_step) ->
+    {"loss", "ce_all", "preds"}``: one train step in place on ``state``
+    (forward in train mode, :func:`make_loss`, backward, and with
+    ``do_step`` Adam).  Metrics are unsynced tensors."""
+    loss = make_loss(cfg)
+
+    def step(state: TrainState, feats, labels, mae_mask, weights, lr,
+             do_step: bool):
+        model = state.model
+        model.train()
+        opt = state.opt_state["params"]
+        opt.zero_grad(set_to_none=True)
+        total, ce_all, preds = loss(model(feats, mae_mask=mae_mask), labels,
+                                    mae_mask, weights)
         total.backward()
         if do_step:
             for pg in opt.param_groups:
                 pg["lr"] = lr
             opt.step()
             state.step += 1
-        preds = torch.stack([out["logits"][k].argmax(dim=-1) for k in heads])
-        return {"loss": total.detach(), "ce_all": parts["all"].detach(),
+        return {"loss": total.detach(), "ce_all": ce_all.detach(),
                 "preds": preds}
 
     return step
@@ -142,6 +163,13 @@ def make_train_step(cfg: FusionTrainConfig):
 
 def _host(a) -> np.ndarray:
     return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def _group_ckpt_path(save_dir: Optional[str]) -> Optional[str]:
+    """The vmapped engine's mid-group snapshot in ``save_dir`` (None
+    without one)."""
+    return os.path.join(save_dir, "vmap_group_ckpt.npz") if save_dir \
+        else None
 
 
 class FusionTrainer:
@@ -155,7 +183,7 @@ class FusionTrainer:
             raise NotImplementedError(
                 "a tensor-parallel mesh is not ported yet (ROADMAP §1, the "
                 "parallel layouts); the port trains on one card")
-        check_dtype(cfg)
+        compute_dtype(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self._stop_requested = False
@@ -347,7 +375,7 @@ class FusionTrainer:
                          for i, m in enumerate(cfg.modalities)}
             out = model(feats, present=present,
                         mae_mask=imputation_masks(present))
-            fused.append(out["logits"]["all"][:real])
+            fused.append(out["logits"]["all"][:real].float())
             preds.append(torch.stack([out["logits"][k].argmax(dim=-1)
                                       for k in heads])[:, :real])
         fused = torch.cat(fused).cpu().numpy()
@@ -365,7 +393,7 @@ class FusionTrainer:
     # -- cross-validation ------------------------------------------------------
     def cross_validate(self, ds, epochs: Optional[int] = None, log=print,
                        save_dir: Optional[str] = None, resume: bool = True,
-                       vmap_folds: bool = False):
+                       vmap_folds: bool = False, vmap_group: int = 25):
         """Seed-repeat x stratified-K-fold CV with an inner train/val split
         and best-by-val-accuracy selection (main, my_train(full).py:
         417-623).  Returns ``{"folds", "mean_test_acc", "stopped_early"}``.
@@ -381,12 +409,11 @@ class FusionTrainer:
         finalise the current fold from its best-by-val weights and return
         the completed folds with ``stopped_early`` set.
 
-        ``vmap_folds`` (the JAX package's fold-stacked engine) is not
-        ported yet and raises."""
-        if vmap_folds:
-            raise NotImplementedError(
-                "vmap_folds is not ported yet (ROADMAP §1: the vmapped-folds "
-                "CV engine, torch.func, is the next fusion slice)")
+        ``vmap_folds``: train the (seed, fold) pairs, across seeds, in
+        groups of at most ``vmap_group`` at once, fold-stacked
+        (:meth:`_cross_validate_vmapped`): per pair the sequential engine's
+        streams and results, the same files and fold-level resume; a stop
+        between epoch chunks checkpoints the group in flight."""
         epochs = epochs or self.cfg.epochs
         labels = np.asarray(ds["labels"])
         self._stop_requested = False
@@ -400,6 +427,10 @@ class FusionTrainer:
             for sig in (signal.SIGTERM, signal.SIGINT):
                 prev_handlers[sig] = signal.signal(sig, _request_stop)
         try:
+            if vmap_folds:
+                return self._cross_validate_vmapped(
+                    ds, epochs, labels, log, save_dir, resume,
+                    group=vmap_group)
             return self._cross_validate(ds, epochs, labels, log, save_dir,
                                         resume)
         finally:
@@ -411,20 +442,70 @@ class FusionTrainer:
         fold from its best-by-val weights, return the completed folds)."""
         self._stop_requested = True
 
+    def _load_progress(self, save_dir, resume, log) -> dict:
+        """The folds ``cv_progress.json`` lists, by (seed, fold)."""
+        path = os.path.join(save_dir, "cv_progress.json") if save_dir else None
+        if not (resume and path and os.path.exists(path)):
+            return {}
+        with open(path) as f:
+            done = {(r["seed"], r["fold"]): r for r in json.load(f)["folds"]}
+        if done:
+            log(f"resuming: {len(done)} completed folds loaded from {path}")
+        return done
+
+    @staticmethod
+    def _write_progress(save_dir, folds) -> None:
+        """Durable fold-level progress (atomic rename): the resume source
+        after a stop or a crash."""
+        if save_dir:
+            path = os.path.join(save_dir, "cv_progress.json")
+            with open(path + ".tmp", "w") as f:
+                json.dump(_to_jsonable({"folds": folds}), f)
+            os.replace(path + ".tmp", path)
+
+    def _finish_fold(self, ds, seed, fold, test_idx, best_params, history,
+                     save_dir):
+        """The test evaluation with a fold's best weights; its curves and
+        npz under ``save_dir``."""
+        final = self.predict(best_params, subset(ds, test_idx))
+        if history is not None:
+            history.plot()
+        if save_dir:
+            from cervical_tpu_torch.inference.fusion_predictor import (
+                save_params_npz)
+            save_params_npz(os.path.join(
+                save_dir, f"best_seed{seed}_fold{fold}.npz"), best_params)
+        return final
+
+    def _results(self, results, save_dir):
+        mean_acc = float(np.mean([r["test"]["acc_all"] for r in results]))
+        if save_dir:
+            with open(os.path.join(save_dir, "cv_results.json"), "w") as f:
+                json.dump(_to_jsonable(
+                    {"folds": results,
+                     "mean_test_acc": mean_acc,
+                     "stopped_early": self._stop_requested,
+                     "modalities": list(self.cfg.modalities)}), f, indent=1)
+            if results:
+                total_cm = np.sum([np.asarray(r["test"]["confusion"])
+                                   for r in results], axis=0)
+                metrics.write_classification_report(
+                    metrics.report_from_confusion(total_cm),
+                    os.path.join(save_dir, "classification_out"))
+        return {"folds": results, "mean_test_acc": mean_acc,
+                "stopped_early": self._stop_requested}
+
+    def _history(self, save_dir, seed, fold):
+        if not save_dir:
+            return None
+        from cervical_tpu_torch.train.callbacks import FusionHistory
+        return FusionHistory(save_dir, seed, fold)
+
     def _cross_validate(self, ds, epochs, labels, log, save_dir, resume):
         cfg = self.cfg
         # the cohort goes to the card once; folds and epochs gather there
         ds = self._device_cohort(ds)
-        progress_path = (os.path.join(save_dir, "cv_progress.json")
-                         if save_dir else None)
-        done = {}
-        if resume and progress_path and os.path.exists(progress_path):
-            with open(progress_path) as f:
-                done = {(r["seed"], r["fold"]): r
-                        for r in json.load(f)["folds"]}
-            if done:
-                log(f"resuming: {len(done)} completed folds loaded from "
-                    f"{progress_path}")
+        done = self._load_progress(save_dir, resume, log)
         results = []
         fold = -1
         for seed in range(cfg.start_seed, cfg.start_seed + cfg.repeat_num):
@@ -440,10 +521,7 @@ class FusionTrainer:
                 self.reseed(cfg.start_seed, seed * 1000 + fold)
                 state = self.init_state()
                 schedule = fusion_step_decay(cfg.lr, cfg.lr_gamma, cfg.lr_step)
-                history = None
-                if save_dir:
-                    from cervical_tpu_torch.train.callbacks import FusionHistory
-                    history = FusionHistory(save_dir, seed, fold)
+                history = self._history(save_dir, seed, fold)
 
                 best = {"val_acc": -1.0, "params": None, "epoch": -1}
                 train_ds = subset(ds, tr_idx)
@@ -479,30 +557,17 @@ class FusionTrainer:
                         if cfg.per_epoch_test:
                             msg += f" test acc {epoch_test[-1]['acc_all']:.3f}"
                         log(msg)
-                best_params = best["params"] or state.model.state_dict()
-                final = self.predict(best_params, test_ds)
-                if history is not None:
-                    history.plot()
-                if save_dir:
-                    from cervical_tpu_torch.inference.fusion_predictor import (
-                        save_params_npz)
-                    save_params_npz(os.path.join(
-                        save_dir, f"best_seed{seed}_fold{fold}.npz"),
-                        best_params)
+                final = self._finish_fold(
+                    ds, seed, fold, test_idx,
+                    best["params"] or state.model.state_dict(), history,
+                    save_dir)
                 fold_results.append({"seed": seed, "fold": fold,
                                      "best_epoch": best["epoch"],
                                      "val_acc": best["val_acc"],
                                      "test": final,
                                      "epoch_test": epoch_test})
                 log(f"seed {seed} fold {fold}: test acc {final['acc_all']:.3f}")
-                if progress_path:
-                    # durable fold-level progress (atomic rename): the
-                    # resume source after a stop or a crash
-                    tmp = progress_path + ".tmp"
-                    with open(tmp, "w") as f:
-                        json.dump(_to_jsonable(
-                            {"folds": results + fold_results}), f)
-                    os.replace(tmp, progress_path)
+                self._write_progress(save_dir, results + fold_results)
                 if self._stop_requested:
                     break
             results.extend(fold_results)
@@ -511,19 +576,238 @@ class FusionTrainer:
                     f"({len(results)} folds completed)")
                 break
         self._graphs.clear()
-        mean_acc = float(np.mean([r["test"]["acc_all"] for r in results]))
-        if save_dir:
-            with open(os.path.join(save_dir, "cv_results.json"), "w") as f:
-                json.dump(_to_jsonable(
-                    {"folds": results,
-                     "mean_test_acc": mean_acc,
-                     "stopped_early": self._stop_requested,
-                     "modalities": list(cfg.modalities)}), f, indent=1)
-            if results:
-                total_cm = np.sum([np.asarray(r["test"]["confusion"])
-                                   for r in results], axis=0)
-                metrics.write_classification_report(
-                    metrics.report_from_confusion(total_cm),
-                    os.path.join(save_dir, "classification_out"))
-        return {"folds": results, "mean_test_acc": mean_acc,
-                "stopped_early": self._stop_requested}
+        return self._results(results, save_dir)
+
+    # -- the vmapped-folds engine ------------------------------------------------
+    def _cross_validate_vmapped(self, ds, epochs, labels, log, save_dir,
+                                resume=True, epoch_chunk=20, group=25):
+        """(seed, fold) pairs trained at once (see :meth:`cross_validate`).
+
+        Pairs already in ``cv_progress.json`` are skipped one by one; the
+        rest, across seeds, are packed into groups of at most ``group``.  A
+        group is a :class:`~cervical_tpu_torch.train.fold_stack.FoldStack`
+        of its pairs, each initialised and streamed as the sequential
+        engine would (``stream_seeds(start_seed, seed * 1000 + fold)``):
+        per epoch and pair a shuffle and the MAE masks for ``nb * bs``
+        rows, the pair's ``nb`` batches padded with all-weight-0 batches to
+        the group's longest.  Per epoch: ``nb_max`` stacked train steps (on
+        the card a CUDA graph per ``do_step``), one stacked evaluation of
+        the val sets and one of the test sets (each padded with weight-0
+        rows to the group's longest; a CUDA graph each), best-by-val
+        tracking on the device.  ``group`` bounds device memory (~6
+        param-sized f32 copies per pair: params, gradients, Adam's moments,
+        the best snapshot, the update's temporaries).
+
+        A stop is taken between epoch chunks of ``epoch_chunk`` epochs:
+        with ``save_dir`` the group in flight is written to
+        ``vmap_group_ckpt.npz`` and a rerun restores it when its pairs
+        match, continuing bit for bit; without one the group in flight is
+        dropped."""
+        cfg = self.cfg
+        ds = self._device_cohort(ds)
+        ckpt_path = _group_ckpt_path(save_dir)
+        done = self._load_progress(save_dir, resume, log)
+        pairs = []
+        for seed in range(cfg.start_seed, cfg.start_seed + cfg.repeat_num):
+            for fold, (train_idx, test_idx) in enumerate(
+                    split_lib.stratified_kfold(labels, cfg.kfold, seed=seed)):
+                if (seed, fold) in done:
+                    continue
+                tr, va = split_lib.train_test_split(
+                    train_idx, cfg.inner_test_size, seed=seed,
+                    stratify=labels[train_idx])
+                pairs.append((seed, fold, tr, va, np.asarray(test_idx)))
+        results = list(done.values())
+        for g0 in range(0, len(pairs), group):
+            if self._stop_requested:
+                break
+            gpairs = pairs[g0:g0 + group]
+            folds = self._train_group(ds, gpairs, epochs, g0 // group, log,
+                                      save_dir, resume, epoch_chunk)
+            if folds is None:  # stopped between chunks
+                log(f"stopped early after {len(results)} folds"
+                    + (" (mid-group snapshot saved)" if ckpt_path else ""))
+                break
+            for (seed, fold, _tr, _va, test_idx), r in zip(gpairs, folds):
+                r["test"] = self._finish_fold(
+                    ds, seed, fold, test_idx, r.pop("params"),
+                    r.pop("history"), save_dir)
+                log(f"seed {seed} fold {fold}: test acc "
+                    f"{r['test']['acc_all']:.3f}")
+            results.extend(folds)
+            self._write_progress(save_dir, results)
+            if ckpt_path and os.path.exists(ckpt_path):
+                os.remove(ckpt_path)  # the group is finalised
+            if self._stop_requested:
+                log(f"stopped early after {len(results)} folds")
+                break
+        results.sort(key=lambda r: (r["seed"], r["fold"]))
+        return self._results(results, save_dir)
+
+    def _train_group(self, ds, gpairs, epochs, gi, log, save_dir, resume,
+                     epoch_chunk):
+        """Train one group of (seed, fold, train, val, test) pairs on the
+        device cohort ``ds``, first restoring ``save_dir``'s group snapshot
+        if ``resume`` and it holds this group.  Returns per pair ``{"seed",
+        "fold", "best_epoch", "val_acc", "epoch_test", "params",
+        "history"}``, or None if a stop came between epoch chunks (with
+        ``save_dir``, after writing the snapshot)."""
+        cfg = self.cfg
+        ckpt_path = _group_ckpt_path(save_dir)
+        dev, bs, t = self.device, cfg.batch_size, len(cfg.modalities)
+        n_fs = [len(p[2]) for p in gpairs]
+        nb_fs = [-(-n // bs) for n in n_fs]
+        nb_max = max(nb_fs)
+        sds, drop_seeds, gens = [], [], {"shuffle": [], "mask": []}
+        for seed, fold, *_ in gpairs:
+            self.reseed(cfg.start_seed, seed * 1000 + fold)
+            sds.append(build_model(cfg).init_weights(self.init_generator)
+                       .state_dict())
+            drop_seeds.append(self.dropout_seed)
+            gens["shuffle"].append(self.shuffle_generator)
+            gens["mask"].append(self.mask_generator)
+        stack = FS.FoldStack(build_model(cfg).to(dev), sds, drop_seeds)
+        opt = FS.StackedAdam(stack.flat, lr=cfg.lr,
+                             weight_decay=cfg.weight_decay)
+        state = TrainState(stack, {"params": opt})
+        step, evaluate = (FS.make_stacked_step(stack, opt, make_loss(cfg)),
+                          FS.make_stacked_eval(stack))
+        feats, lbl = ds["feats"], ds["labels"]
+        present = ds["present"]
+
+        def eval_set(sets):
+            vmax = max(len(x) for x in sets)
+            idx = torch.from_numpy(np.stack([np.concatenate(
+                [x, np.full(vmax - len(x), x[0], x.dtype)]) for x in sets]
+            )).to(dev)
+            w = torch.from_numpy(np.stack([np.concatenate(
+                [np.ones(len(x), np.float32),
+                 np.zeros(vmax - len(x), np.float32)]) for x in sets])
+            ).to(dev)
+            pres = present.index_select(0, idx.reshape(-1)).view(
+                len(sets), vmax, t)
+            fn = lambda: evaluate(feats, lbl, idx, w, pres)  # noqa: E731
+            return (GraphedCall(fn, state, (), dev) if dev.type == "cuda"
+                    else fn)
+
+        calls = {}
+
+        def train_call(do_step):
+            if do_step not in calls:
+                fn = lambda i, m, w, lr: step(  # noqa: E731
+                    feats, lbl, i, m, w, lr, do_step)
+                f = len(gpairs)
+                calls[do_step] = fn if dev.type != "cuda" else GraphedCall(
+                    fn, state, (torch.zeros((f, bs), dtype=torch.int64,
+                                            device=dev),
+                                torch.zeros((f, bs, t), dtype=torch.bool,
+                                            device=dev),
+                                torch.ones((f, bs), device=dev),
+                                self._lr_arg(cfg.lr)), dev)
+            return calls[do_step]
+
+        val_call = eval_set([p[3] for p in gpairs])
+        test_call = eval_set([p[4] for p in gpairs]) if cfg.per_epoch_test \
+            else None
+        f = len(gpairs)
+        best = {"flat": stack.flat.detach().clone(),
+                "acc": torch.full((f,), -1.0, device=dev),
+                "epoch": torch.full((f,), -1, dtype=torch.int64, device=dev)}
+        start, hists = 0, []
+        if resume and ckpt_path and os.path.exists(ckpt_path):
+            got = FS.load_group_ckpt(ckpt_path, gpairs, stack, opt, best,
+                                     gens)
+            if got is None:
+                log("vmap group checkpoint does not match the pending "
+                    "group; ignoring it")
+            else:
+                start, restored = got
+                hists = [tuple(torch.from_numpy(h[e]).to(dev)
+                               for h in restored) for e in range(start)]
+                log(f"resuming group mid-training at epoch {start}/{epochs}")
+        schedule = fusion_step_decay(cfg.lr, cfg.lr_gamma, cfg.lr_step)
+        for c0 in range(start, epochs, epoch_chunk):
+            c1 = min(c0 + epoch_chunk, epochs)
+            for epoch in range(c0, c1):
+                idx, masks, w = self._group_epoch(gpairs, gens, nb_max)
+                call = train_call(not (cfg.epoch0_no_step and epoch == 0))
+                lr = self._lr_arg(schedule(epoch))
+                outs = [call(idx[b], masks[b], w[b], lr)
+                        for b in range(nb_max)]
+                val = val_call()
+                te = test_call() if test_call else {
+                    k: torch.zeros_like(v) for k, v in val.items()}
+                with torch.no_grad():
+                    better = val["acc"] > best["acc"]
+                    best["acc"] = torch.where(better, val["acc"], best["acc"])
+                    best["epoch"] = torch.where(better, epoch, best["epoch"])
+                    best["flat"] = torch.where(better[:, None], stack.flat,
+                                               best["flat"])
+                hists.append(tuple(torch.stack([o[k] for o in outs]).sum(0)
+                                   for k in ("ce_all", "corr"))
+                             + (val["ce"], val["acc"], te["ce"], te["acc"]))
+            log(f"group {gi}: epochs {c1}/{epochs}")
+            if self._stop_requested and c1 < epochs:
+                if ckpt_path:
+                    FS.save_group_ckpt(
+                        ckpt_path, gpairs, c1, stack, opt, best,
+                        [torch.stack([h[i] for h in hists]).cpu().numpy()
+                         for i in range(6)], gens)
+                    log(f"stop requested: group checkpointed at epoch "
+                        f"{c1}/{epochs} ({ckpt_path})")
+                return None
+        tr_ce, tr_corr, vce, vacc, tce, tacc = (
+            torch.stack([h[i] for h in hists]).cpu().numpy()
+            for i in range(6))
+        best_epoch = best["epoch"].cpu().numpy()
+        best_acc = best["acc"].cpu().numpy()
+        out = []
+        for i, (seed, fold, *_) in enumerate(gpairs):
+            history = self._history(save_dir, seed, fold)
+            if history is not None:
+                for e in range(epochs):
+                    history.append(e, tr_ce[e, i] / nb_fs[i], vce[e, i],
+                                   tr_corr[e, i] / n_fs[i], vacc[e, i])
+            out.append({
+                "seed": seed, "fold": fold,
+                "best_epoch": int(best_epoch[i]),
+                "val_acc": float(best_acc[i]),
+                "epoch_test": ([{"epoch": e, "loss": float(tce[e, i]),
+                                 "acc_all": float(tacc[e, i])}
+                                for e in range(epochs)]
+                               if cfg.per_epoch_test else None),
+                "params": {k: v.clone() for k, v in
+                           stack.pair_state_dict(i, best["flat"]).items()},
+                "history": history})
+        return out
+
+    def _group_epoch(self, gpairs, gens, nb_max):
+        """One epoch's streams of a group, drawn per pair as
+        :meth:`train_epoch` draws them: ``idx`` (nb_max, F, B) cohort rows,
+        ``masks`` (nb_max, F, B, T), ``w`` (nb_max, F, B); each pair's
+        ragged tail padded with weight-0 rows (its train set's row 0), its
+        batches past its own ``nb`` all weight 0."""
+        cfg = self.cfg
+        bs, t = cfg.batch_size, len(cfg.modalities)
+        rows = nb_max * bs
+        idx, w, masks = [], [], []
+        for (_s, _f, tr, *_), shuf, mgen in zip(gpairs, gens["shuffle"],
+                                                gens["mask"]):
+            n = len(tr)
+            nrows = -(-n // bs) * bs
+            order = torch.randperm(n, generator=shuf).numpy()
+            idx.append(np.concatenate([tr[order],
+                                       np.full(rows - n, tr[0], tr.dtype)]))
+            w.append(np.concatenate([np.ones(n, np.float32),
+                                     np.zeros(rows - n, np.float32)]))
+            m = (generate_modal_masks(mgen, nrows, t) if t > 1
+                 else torch.zeros((nrows, 1), dtype=torch.bool,
+                                  device=self.device))
+            masks.append(torch.cat([m, m.new_zeros((rows - nrows, t))]))
+
+        def batches(a):
+            return a.view(len(gpairs), nb_max, bs, *a.shape[2:]).transpose(
+                0, 1).contiguous()
+        return (batches(torch.from_numpy(np.stack(idx)).to(self.device)),
+                batches(torch.stack(masks)),
+                batches(torch.from_numpy(np.stack(w)).to(self.device)))

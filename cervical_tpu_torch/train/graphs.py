@@ -4,9 +4,10 @@ the JAX package's compiled K-step programs (``lax.scan`` over K steps).
 A :class:`GraphedCall` captures ``fn(*static_inputs) -> {name: tensor}``
 once and replays it: each call copies its inputs into the static buffers
 (stream-ordered, no host wait), replays, and returns clones of the outputs.
-``fn`` may train ``state`` in place: the model's params and buffers, the
-optimizers' states and the dropout generators are what a replay advances,
-exactly as the same steps run eagerly would.
+``fn`` may train ``state`` in place: the model's params and buffers (the
+fusion model's dropout count among them), the optimizers' states and the
+dropout generators are what a replay advances, exactly as the same steps
+run eagerly would.
 
 Capture follows PyTorch's whole-network recipe: warm-up on a side stream
 (cuBLAS/cuDNN handles, the lazy caches of host-made constants, the kernel
@@ -49,8 +50,16 @@ def dropout_generators(model, device) -> list:
             if isinstance(m, Dropout)]
 
 
+def _model_tensors(model) -> list:
+    """Every param and buffer of ``model``, those outside the ``state_dict``
+    (a fusion model's dropout count) included, detached: a clone that
+    tracked a param would keep its autograd node, made on the default
+    stream, alive into the capture."""
+    return [t.detach() for t in (*model.parameters(), *model.buffers())]
+
+
 def _snapshot(state, gens):
-    model_t = [t.clone() for t in state.model.state_dict().values()]
+    model_t = [t.clone() for t in _model_tensors(state.model)]
     opt = {}
     for name, o in state.opt_state.items():
         opt[name] = {p: {k: v.clone() if torch.is_tensor(v) else v
@@ -62,7 +71,7 @@ def _snapshot(state, gens):
 @torch.no_grad()
 def _restore(state, gens, snap):
     model_t, opt, gen_states, step, counters = snap
-    for t, saved in zip(state.model.state_dict().values(), model_t):
+    for t, saved in zip(_model_tensors(state.model), model_t):
         t.copy_(saved)
     for name, o in state.opt_state.items():
         for p, st in o.state.items():
@@ -95,6 +104,8 @@ class GraphedCall:
             raise ValueError("GraphedCall captures CUDA work; on the CPU "
                              "call the function itself")
         self.state = state
+        # the graph reads what ``fn`` closes over by address: keep it alive
+        self.fn = fn
         self.static = [torch.empty_like(t, device=device)
                        for t in example_inputs]
         for s, t in zip(self.static, example_inputs):

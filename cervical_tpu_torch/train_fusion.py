@@ -7,14 +7,17 @@ modality subset is a flag).
 Usage:
     python -m cervical_tpu_torch.train_fusion --cohort cohort.npz \
         --modalities '["imgN","imgA","imgL","cli"]' [--epochs 180] \
+        [--vmap_folds true] [--vmap_group 25] [--dtype bfloat16] \
         [--log_dir log] [--device cuda] [--key value ...]
 
 The per-arity deltas (``FusionTrainConfig.arity_defaults``) apply after the
 file and CLI values, never over a key set explicitly.  ``--device``
-defaults to ``cuda``.  SIGTERM or SIGINT finalises the fold in flight and
-stops; a rerun with the same ``--save_dir`` resumes after the completed
-folds.  ``--vmap_folds true`` and ``--vmap_group`` (the JAX package's
-fold-stacked engine) and the multihost flags are not ported yet and raise.
+defaults to ``cuda``.  ``--vmap_folds true`` trains the (seed, fold) pairs
+fold-stacked, ``--vmap_group`` of them at a time (default 25): the same
+per-fold results and files, fold-level resume.  SIGTERM or SIGINT
+finalises the fold in flight and stops (with ``--vmap_folds``, at the next
+epoch chunk, checkpointing the group in flight); a rerun with the same
+``--save_dir`` resumes.  The multihost flags are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -26,23 +29,22 @@ _MULTIHOST_FLAGS = ("--multihost", "--coordinator", "--num_processes",
 
 
 def build_config(argv):
-    """Parse CLI args into (cfg, cohort_path, log_dir, device)."""
+    """Parse CLI args into (cfg, cohort_path, log_dir, vmap_folds,
+    vmap_group, device)."""
     from cervical_tpu_torch.config import (FusionTrainConfig, load_config,
                                            parse_cli_overrides)
     overrides = parse_cli_overrides(argv)
     cohort_path = overrides.pop("cohort", None)
     cfg_path = overrides.pop("config", None)
     log_dir = overrides.pop("log_dir", None)
-    if overrides.pop("vmap_folds", False) or "vmap_group" in overrides:
-        raise NotImplementedError(
-            "--vmap_folds/--vmap_group are not ported yet (ROADMAP §1: the "
-            "vmapped-folds CV engine is the next fusion slice)")
+    vmap_folds = bool(overrides.pop("vmap_folds", False))
+    vmap_group = int(overrides.pop("vmap_group", 25))
     device = overrides.pop("device", "cuda")
     explicit = set()
     cfg = load_config(FusionTrainConfig, cfg_path, overrides,
                       explicit_out=explicit)
     cfg.arity_defaults(explicit=explicit)
-    return cfg, cohort_path, log_dir, device
+    return cfg, cohort_path, log_dir, vmap_folds, vmap_group, device
 
 
 def main(argv):
@@ -56,13 +58,15 @@ def main(argv):
     from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
     from cervical_tpu_torch.utils import Logger, show_config
 
-    cfg, cohort_path, log_dir, device = build_config(argv)
+    cfg, cohort_path, log_dir, vmap_folds, vmap_group, device = \
+        build_config(argv)
     if log_dir:  # tee stdout to log_dir/<timestamp>.log (util.py:50-67)
         sys.stdout = Logger(log_dir, stream=sys.stdout)
     show_config(**{k: getattr(cfg, k) for k in
                    ("modalities", "epochs", "lr", "batch_size", "kfold",
                     "inner_test_size", "weight_decay", "lr_step", "mix",
-                    "add_mse_loss_of_mae")}, device=device)
+                    "add_mse_loss_of_mae", "dtype")}, device=device,
+                vmap_folds=vmap_folds, vmap_group=vmap_group)
     if cohort_path is None:
         raise SystemExit("--cohort path/to/cohort.npz is required")
     ds = load_npz(cohort_path)
@@ -72,7 +76,9 @@ def main(argv):
     ds = align_to_modalities(ds, cfg.modalities)
 
     trainer = FusionTrainer(cfg, device=device)
-    result = trainer.cross_validate(ds, save_dir=cfg.save_dir)
+    result = trainer.cross_validate(ds, save_dir=cfg.save_dir,
+                                    vmap_folds=vmap_folds,
+                                    vmap_group=vmap_group)
     print(f"mean test accuracy over folds: {result['mean_test_acc']:.4f}")
 
 

@@ -44,8 +44,8 @@ def main(argv):
     for flag in _MULTIHOST_FLAGS:
         if any(a == flag or a.startswith(flag + "=") for a in argv):
             raise NotImplementedError(
-                f"{flag}: multihost training is not ported yet (ROADMAP "
-                "item 14, the parallel layouts); the port trains on one card")
+                f"{flag}: multihost training is not ported yet (ROADMAP §1 "
+                "item 8, the parallel layouts); the port trains on one card")
     device = _pop(argv, "--device") or "cuda"
     cfg_path = _pop(argv, "--config")
 

@@ -92,8 +92,19 @@
    idle share of both, and the graph step's top kernels; an epoch over the
    whole cohort; ``cross_validate`` stopped after folds 0 and 1 of 5, 3
    epochs each, whose fused train accuracy must exceed 0.7 (the JAX
-   package's threshold, tests/test_fusion_training.py:83).  No kernel of
-   the port runs here: the fusion path has none.
+   package's threshold, tests/test_fusion_training.py:83).  Then the
+   vmapped-folds engine (``fusion_vmap``): (a) 4 stacked steps of 3 pairs
+   replayed from their CUDA graphs against the same steps run eagerly, bit
+   for bit, dropout on, epoch 0's no-step and a pair on a padding batch;
+   (a2) 3 stacked pairs at that width against the sequential train step on
+   each pair's own model, dropout shared, to the CPU tests' limits;
+   (b) ``cross_validate(vmap_folds=True)`` against the sequential engine,
+   2 pairs x 2 epochs at the CPU test's size and tolerances; (c) group
+   widths 1, 5 and 25: the stacked step's ms per group step and per
+   pair-step, idle share, and the engine cut to 3 epochs (pair-epochs/s,
+   peak memory); (d) bf16: a sequential and a stacked step, graph against
+   eager bit for bit, finite losses.  No kernel of the port runs here: the
+   fusion path has none.
 9. Prints one ``{"kernels": [...]}`` line (six kernels), then as the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -1401,6 +1412,367 @@ def top_kernels(torch, prof_cls, DeviceType, run, steps, top=8):
     return [sum(r[2] for r in rows)] + sorted(rows, key=lambda r: -r[1])[:top]
 
 
+def stacked_twins(torch, cfg, f, dev, copies=2, seed=21):
+    """``copies`` identical fold stacks of ``f`` pairs (``cfg``'s model,
+    pair i drawn from seed ``seed + i``, dropout seed ``100 + i``), each
+    with its ``StackedAdam`` and stacked step: ``[(state, step), ...]``."""
+    from cervical_tpu_torch.train import fold_stack as FS
+    from cervical_tpu_torch.train.fusion_trainer import build_model, make_loss
+    from cervical_tpu_torch.train.seg_trainer import TrainState
+    sds = [build_model(cfg).init_weights(
+        torch.Generator().manual_seed(seed + i)).state_dict()
+        for i in range(f)]
+    out = []
+    for _ in range(copies):
+        stack = FS.FoldStack(build_model(cfg).to(dev), sds,
+                             [100 + i for i in range(f)])
+        opt = FS.StackedAdam(stack.flat, lr=cfg.lr,
+                             weight_decay=cfg.weight_decay)
+        out.append((TrainState(stack, {"params": opt}),
+                    FS.make_stacked_step(stack, opt, make_loss(cfg))))
+    return out
+
+
+def stacked_states_equal(torch, a, b):
+    sa, sb = a.model, b.model
+    oa, ob = (s.opt_state["params"].state[s.model.flat] for s in (a, b))
+    return (torch.equal(sa.flat, sb.flat) and torch.equal(sa.rng, sb.rng)
+            and all(torch.equal(oa[k], ob[k]) for k in oa))
+
+
+def stacked_graph_vs_eager(torch, cfg, ds, f, dev, g):
+    """Four stacked steps of ``f`` pairs replayed from their CUDA graphs (one
+    per ``do_step``) against the same steps run eagerly on a twin stack, bit
+    for bit (outputs, params, dropout counts, Adam's counts and moments),
+    dropout on: steps 0-1 with ``do_step`` False (epoch 0), 2-3 True, pair 1
+    on an all-weight-0 batch at step 3 (its state must not move)."""
+    from cervical_tpu_torch.data.masks import generate_modal_masks
+    from cervical_tpu_torch.train.graphs import GraphedCall
+    (sa, step_a), (sb, step_b) = stacked_twins(torch, cfg, f, dev)
+    bs, t = cfg.batch_size, len(cfg.modalities)
+    feats, labels = ds["feats"], torch.as_tensor(ds["labels"],
+                                                 dtype=torch.int64,
+                                                 device=dev)
+    n = labels.shape[0]
+    idx = torch.randint(0, n, (4, f, bs), generator=g, device=dev)
+    masks = generate_modal_masks(g, 4 * f * bs, t).view(4, f, bs, t)
+    w = torch.ones((4, f, bs), device=dev)
+    w[3, 1] = 0
+    w[3, 0, 5:] = 0
+    lr = torch.full((), cfg.lr, device=dev)
+    calls = {d: GraphedCall(
+        lambda i, m, ww, l, d=d: step_a(feats, labels, i, m, ww, l, d), sa,
+        (idx[0], masks[0], w[0], lr), dev) for d in (False, True)}
+    same = True
+    for k in range(4):
+        d = k >= 2
+        if k == 3:
+            held = sa.model.flat[1].clone()
+        ma = calls[d](idx[k], masks[k], w[k], lr)
+        mb = step_b(feats, labels, idx[k], masks[k], w[k], lr, d)
+        same &= all(torch.equal(ma[key], mb[key]) for key in ma)
+        same &= bool(torch.isfinite(ma["loss"]).all())
+    same &= stacked_states_equal(torch, sa, sb)
+    same &= torch.equal(sa.model.flat[1], held)
+    counts = sa.opt_state["params"].state[sa.model.flat]["step"]
+    same &= counts.tolist() == [2.0, 1.0] + [2.0] * (f - 2)
+    same &= sa.model.rng[:, 1].tolist() == [4, 3] + [4] * (f - 2)
+    return same
+
+
+def stacked_vs_sequential(torch, cfg, ds, f, dev, g):
+    """Pair by pair, ``f`` stacked pairs at ``cfg``'s width against the
+    sequential ``FusionTrainer.train_step_fn`` on a model loaded with that
+    pair's params and dropout ``rng`` (so the same dropout masks): 3 steps,
+    dropout on, step 0 without Adam (epoch 0), pair 1 on an all-weight-0
+    batch at step 2 (the sequential side skips it; the stacked pair must not
+    move) and pair 2 on a ragged one.  A batched product rounds otherwise
+    than a single one, so the limits are the CPU tests' against JAX: loss
+    to 1e-4 relative; the first Adam step's gradients, at equal params, to
+    1e-4 of each tensor's largest entry (floored at 1e-3 of the largest of
+    all); params within ``_adam_bounds``'s per-entry bound (1e-5 plus, per
+    Adam step, lr * min(2, 2 d / sqrt(v)), d the entry's largest gradient
+    difference so far, v the sequential side's bias-corrected second
+    moment); moments to 1e-3 (floored as the gradients); Adam's and the
+    dropout counts exact.  Returns (ok, readings)."""
+    from cervical_tpu_torch.data.masks import generate_modal_masks
+    from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
+    [(st, step)] = stacked_twins(torch, cfg, f, dev, copies=1)
+    stack, opt = st.model, st.opt_state["params"]
+    tr = FusionTrainer(cfg, device=dev.type)
+    seq_step = tr.train_step_fn()
+    seqs = []
+    for i in range(f):
+        s = tr.init_state()
+        s.model.load_state_dict(stack.pair_state_dict(i))
+        s.model.rng.copy_(stack.rng[i])
+        seqs.append(s)
+    bs, t = cfg.batch_size, len(cfg.modalities)
+    feats = ds["feats"]
+    labels = torch.as_tensor(ds["labels"], dtype=torch.int64, device=dev)
+    idx = torch.randint(0, labels.shape[0], (3, f, bs), generator=g,
+                        device=dev)
+    masks = generate_modal_masks(g, 3 * f * bs, t).view(3, f, bs, t)
+    w = torch.ones((3, f, bs), device=dev)
+    w[2, 1] = 0
+    w[2, 2, 5:] = 0
+    lr = tr._lr_arg(cfg.lr)
+    beta2 = 0.999
+
+    def rel(ref, got):
+        floor = 1e-3 * max(float(v.abs().max()) for v in ref.values())
+        return max(float((ref[n].double() - got[n].double()).abs().max())
+                   / max(float(ref[n].abs().max()), floor) for n in ref)
+
+    bound = [{} for _ in range(f)]
+    dmax = [{} for _ in range(f)]
+    r = {"loss_rel": 0.0, "grad_rel": 0.0}
+    ok = True
+    for k, do in enumerate((False, True, True)):
+        held = stack.flat[1].clone()
+        out = step(feats, labels, idx[k], masks[k], w[k], lr, do)
+        for i in range(f):
+            if not bool((w[k, i] > 0).any()):
+                ok &= torch.equal(stack.flat[i], held)
+                continue
+            rows = idx[k, i]
+            o = seq_step(seqs[i], {m: v.index_select(0, rows)
+                                   for m, v in feats.items()},
+                         labels.index_select(0, rows), masks[k, i], w[k, i],
+                         lr, do)
+            a = float(o["loss"])
+            r["loss_rel"] = max(r["loss_rel"],
+                                abs(a - float(out["loss"][i])) / abs(a))
+            if not do:
+                continue
+            params = dict(seqs[i].model.named_parameters())
+            gs = {n: p.grad for n, p in params.items()}
+            gk = stack.pair_state_dict(i, stack.grad)
+            if not dmax[i]:
+                r["grad_rel"] = max(r["grad_rel"], rel(gs, gk))
+            sopt = seqs[i].opt_state["params"]
+            for n, p in params.items():
+                d = (gs[n].double() - gk[n].double()).abs()
+                dmax[i][n] = torch.maximum(dmax[i][n], d) \
+                    if n in dmax[i] else d
+                ps = sopt.state[p]
+                root = (ps["exp_avg_sq"].double()
+                        / (1.0 - beta2 ** float(ps["step"]))).sqrt()
+                bound[i][n] = bound[i].get(n, 1e-5) + cfg.lr * torch.clamp(
+                    2.0 * dmax[i][n] / root.clamp(min=1e-30), max=2.0)
+    sk = opt.state[stack.flat]
+    r["param_excess"] = r["moment_rel"] = 0.0
+    for i in range(f):
+        params = dict(seqs[i].model.named_parameters())
+        sopt = seqs[i].opt_state["params"]
+        got = stack.pair_state_dict(i)
+        r["param_excess"] = max(r["param_excess"], max(
+            float(((params[n].double() - got[n].double()).abs()
+                   / bound[i][n]).max()) for n in params))
+        for key in ("exp_avg", "exp_avg_sq"):
+            r["moment_rel"] = max(r["moment_rel"], rel(
+                {n: sopt.state[p][key] for n, p in params.items()},
+                stack.pair_state_dict(i, sk[key])))
+        first = sopt.state[next(iter(params.values()))]
+        ok &= float(sk["step"][i]) == float(first["step"])
+        ok &= int(stack.rng[i, 1]) == int(seqs[i].model.rng[1])
+    ok &= (r["loss_rel"] <= 1e-4 and r["grad_rel"] < 1e-4
+           and r["param_excess"] <= 1.0 and r["moment_rel"] < 1e-3)
+    return ok, r
+
+
+def vmap_width(torch, cfg, ds, dev, width, g, card, timing=True):
+    """Readings of the vmapped engine at group width ``width`` on the device
+    cohort ``ds`` at ``cfg``'s width: the stacked train step's CUDA graph
+    replayed (ms per group step and per pair-step, device busy ms, idle
+    share, top kernels; its Adam alone), then ``_cross_validate_vmapped``
+    cut to 3 epochs with ``ceil(width / kfold)`` seed repeats, stopped
+    after its first group (its third epoch's wall time as pair-epochs/s,
+    peak memory)."""
+    import dataclasses
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    from cervical_tpu_torch.data.masks import generate_modal_masks
+    from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
+    from cervical_tpu_torch.train.graphs import GraphedCall
+
+    labels = np.asarray(ds["labels"])
+    n, bs, r = len(labels), cfg.batch_size, {"width": width}
+    idle = None
+    if timing:
+        [(st, step)] = stacked_twins(torch, cfg, width, dev, copies=1)
+        idx = torch.randint(0, n, (8, width, bs), generator=g, device=dev)
+        masks = generate_modal_masks(g, 8 * width * bs, 4).view(
+            8, width, bs, 4)
+        w = torch.ones((width, bs), device=dev)
+        lr = torch.full((), cfg.lr, device=dev)
+        lbl = torch.as_tensor(labels, dtype=torch.int64, device=dev)
+        call = GraphedCall(
+            lambda i, m, ww, l: step(ds["feats"], lbl, i, m, ww, l, True),
+            st, (idx[0], masks[0], w, lr), dev)
+
+        def run():
+            for i in range(8):
+                call(idx[i], masks[i], w, lr)
+        ms, busy, idle = timed_steps(torch, profile, DeviceType, run, 8)
+        opt, every = st.opt_state["params"], torch.ones(
+            width, dtype=torch.bool, device=dev)
+        r.update({"group_step_ms": ms, "pair_step_ms": ms / width,
+                  "device_busy_ms_per_step": busy, "idle_share": idle,
+                  "top_kernels": top_kernels(torch, profile, DeviceType,
+                                             run, 8, top=6),
+                  # the step's Adam alone, on the card (CUDA events)
+                  "adam_ms": cuda_ms(torch, lambda: opt.step(
+                      st.model.grad, every, lr), 8)})
+        del st, step, call, opt
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    vcfg = dataclasses.replace(cfg, repeat_num=-(-width // cfg.kfold))
+    tr = FusionTrainer(vcfg, device=dev.type)
+    stamps = []
+
+    def log(msg):
+        stamps.append((time.perf_counter(), msg))
+        if msg == "group 0: epochs 3/3":
+            tr.request_stop()
+    e0 = time.perf_counter()
+    out = tr._cross_validate_vmapped(ds, 3, labels, log, None,
+                                     epoch_chunk=1, group=width)
+    r["engine_s"] = time.perf_counter() - e0
+    ends = {m: t for t, m in stamps if m.startswith("group 0: epochs")}
+    r["epoch3_s"] = ends["group 0: epochs 3/3"] - ends["group 0: epochs 2/3"]
+    r["pair_epochs_per_s"] = width / r["epoch3_s"]
+    r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    accs = [f["test"]["acc_all"] for f in out["folds"]]
+    check(len(accs) == width and all(0.0 <= x <= 1.0 for x in accs),
+          f"(c) width {width}: {len(accs)} folds, test acc {accs}")
+    r["test_acc_mean"] = float(np.mean(accs))
+    del tr, out
+    torch.cuda.empty_cache()
+    msg = (f"fusion vmapped width {width}: engine epoch 3 "
+           f"{r['epoch3_s']:.3f} s = {r['pair_epochs_per_s']:.3f} "
+           f"pair-epochs/s, peak {r['peak_gib']:.2f} GiB")
+    if timing:
+        msg += (f"; stacked step {r['group_step_ms']:.3f} ms = "
+                f"{r['pair_step_ms']:.4f} ms per pair-step (its Adam "
+                f"{r['adam_ms']:.3f} ms), idle "
+                + ("not measured" if idle is None else f"{idle:.4f}"))
+    print(msg + f" ({card})")
+    return r
+
+
+def fusion_vmap(torch, cfg, ds, dev, card, timing=True, widths=(1, 5, 25)):
+    """The vmapped-folds engine on the card (``fusion`` phase, part 2):
+
+    (a) ``stacked_graph_vs_eager`` at ``cfg``'s width, 3 pairs;
+    (a2) ``stacked_vs_sequential`` at ``cfg``'s width, 3 pairs;
+    (b) 2 pairs x 2 epochs of ``cross_validate(vmap_folds=True)`` against
+        the sequential engine on the same pairs (48 synthetic patients, in
+        32, hidden 64: the CPU test's size), at the CPU test's tolerances;
+    (c) ``vmap_width`` per group width: 1 and 5 (one seed, a group of 1 or
+        of its 5 folds) and 25 (5 seeds x 5 folds);
+    (d) bf16: one sequential train step's graph against its eager twin,
+        and ``stacked_graph_vs_eager`` in bf16, finite losses."""
+    import dataclasses
+    import numpy as np
+    from cervical_tpu_torch.config import FusionTrainConfig
+    from cervical_tpu_torch.data.fusion_data import make_synthetic_fusion
+    from cervical_tpu_torch.data.masks import generate_modal_masks
+    from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
+
+    res, seconds = {}, {}
+    g = torch.Generator(dev).manual_seed(5)
+    t0 = time.perf_counter()
+    check(stacked_graph_vs_eager(torch, cfg, ds, 3, dev, g),
+          "(a) stacked graph replays differ from the eager stacked steps")
+    res["stacked_graph_equals_eager"] = True
+    seconds["a"] = time.perf_counter() - t0
+
+    # (a2) pair by pair against the sequential step, at full width
+    t0 = time.perf_counter()
+    ok, r = stacked_vs_sequential(torch, cfg, ds, 3, dev, g)
+    check(ok, f"(a2) stacked pairs differ from the sequential step: {r}")
+    res["stacked_vs_sequential"] = r
+    print(f"fusion (a2) 3 stacked pairs against the sequential step at "
+          f"in {cfg.in_features} hidden {cfg.hidden}: {json.dumps(r)}")
+    seconds["a2"] = time.perf_counter() - t0
+
+    # (b) the engine against the sequential one, on the card
+    t0 = time.perf_counter()
+    scfg = FusionTrainConfig(in_features=32, hidden=64, epochs=2, kfold=2)
+    sds = make_synthetic_fusion(num_patients=48, feature_dim=32, seed=5)
+    seq = FusionTrainer(scfg, device=dev.type).cross_validate(
+        sds, log=lambda *a: None)
+    vm = FusionTrainer(scfg, device=dev.type).cross_validate(
+        sds, log=lambda *a: None, vmap_folds=True)
+    worst = {"val_acc": 0.0, "acc_all": 0.0, "epoch_acc": 0.0,
+             "epoch_loss": 0.0}
+    ok = len(seq["folds"]) == len(vm["folds"]) == 2
+    for a, b in zip(seq["folds"], vm["folds"]):
+        ok &= a["best_epoch"] == b["best_epoch"]
+        ok &= bool(np.array_equal(a["test"]["confusion"],
+                                  b["test"]["confusion"]))
+        worst["val_acc"] = max(worst["val_acc"],
+                               abs(a["val_acc"] - b["val_acc"]))
+        worst["acc_all"] = max(worst["acc_all"], abs(
+            a["test"]["acc_all"] - b["test"]["acc_all"]))
+        for ea, eb in zip(a["epoch_test"], b["epoch_test"]):
+            worst["epoch_acc"] = max(worst["epoch_acc"],
+                                     abs(ea["acc_all"] - eb["acc_all"]))
+            worst["epoch_loss"] = max(worst["epoch_loss"],
+                                      abs(ea["loss"] - eb["loss"]))
+    ok &= (worst["val_acc"] <= 1e-5 and worst["acc_all"] <= 1e-6
+           and worst["epoch_acc"] <= 1e-6 and worst["epoch_loss"] <= 1e-4)
+    check(ok, f"(b) vmapped CV differs from the sequential CV: {worst}")
+    res["vmap_vs_sequential_worst"] = worst
+    seconds["b"] = time.perf_counter() - t0
+
+    # (d) bf16 steps: graph against eager, finite
+    t0 = time.perf_counter()
+    bcfg = dataclasses.replace(cfg, dtype="bfloat16")
+    a, b = FusionTrainer(bcfg, device=dev.type), FusionTrainer(
+        bcfg, device=dev.type)
+    sa, sb = a.init_state(), b.init_state()
+    dv = a._device_cohort(ds)
+    bs = cfg.batch_size
+    idx = torch.randint(0, len(ds["labels"]), (2, bs), generator=g,
+                        device=dev)
+    masks = generate_modal_masks(g, 2 * bs, 4).view(2, bs, 4)
+    call = a._batch_step(sa, dv["feats"], dv["labels"], bs, True)
+    same = True
+    for i in range(2):
+        ma = call(idx[i], masks[i], torch.ones(bs, device=dev),
+                  a._lr_arg(cfg.lr))
+        mb = b.train_step_fn()(
+            sb, {m: v.index_select(0, idx[i]) for m, v in dv["feats"].items()},
+            dv["labels"].index_select(0, idx[i]), masks[i],
+            torch.ones(bs, device=dev), b._lr_arg(cfg.lr), True)
+        same &= all(torch.equal(ma[k], mb[k]) for k in ma)
+        same &= math.isfinite(float(ma["loss"]))
+    same &= all(torch.equal(v, sb.model.state_dict()[k])
+                for k, v in sa.model.state_dict().items())
+    check(same, "(d) the bf16 sequential step's graph differs from eager "
+          "or its loss is not finite")
+    check(stacked_graph_vs_eager(torch, bcfg, ds, 3, dev, g),
+          "(d) bf16 stacked graph replays differ from the eager steps")
+    res["bf16_graph_equals_eager"] = {"sequential": True, "stacked": True,
+                                      "loss": float(ma["loss"])}
+    del a, b, sa, sb, call
+    seconds["d"] = time.perf_counter() - t0
+
+    # (c) group widths: the stacked step and the engine
+    widths_out = {}
+    for width in widths:
+        t0 = time.perf_counter()
+        widths_out[width] = vmap_width(torch, cfg, ds, dev, width, g, card,
+                                       timing)
+        seconds[f"c{width}"] = time.perf_counter() - t0
+    res["widths"] = widths_out
+    res["seconds"] = seconds
+    return res
+
+
 def fusion_phase(torch, card, n=1758, dim=None, hidden=None, device="cuda",
                  timing=True):
     """The fusion classifier (``FusionTrainConfig()``: four modalities,
@@ -1550,6 +1922,7 @@ def fusion_phase(torch, card, n=1758, dim=None, hidden=None, device="cuda",
     res["cv_fold_seconds"] = [e - s for s, e in zip([t0] + ends, ends)]
     seconds["cv"] = res["cv_seconds"]
     res["seconds"] = seconds
+    res["vmap"] = fusion_vmap(torch, cfg, ds, dev, card, timing=timing)
     for key in ("graph_step", "eager_step"):
         if key in res:
             r = res[key]

@@ -803,3 +803,117 @@ def test_fusion_cv_resume_on_card_equals_uninterrupted(cuda_device, tmp_path):
         za = np.load(tmp_path / "full" / f"best_seed0_fold{f}.npz")
         zb = np.load(tmp_path / "part" / f"best_seed0_fold{f}.npz")
         assert all(np.array_equal(za[k], zb[k]) for k in za.files)
+
+
+# -- the vmapped-folds engine and bf16 -------------------------------------------
+
+def _stacked_twins(cfg, f, device):
+    from cervical_tpu_torch.train import fold_stack as FS
+    from cervical_tpu_torch.train.fusion_trainer import build_model, make_loss
+    from cervical_tpu_torch.train.seg_trainer import TrainState
+    sds = [build_model(cfg).init_weights(
+        torch.Generator().manual_seed(30 + i)).state_dict() for i in range(f)]
+    out = []
+    for _ in range(2):
+        stack = FS.FoldStack(build_model(cfg).to(device), sds,
+                             [7 + i for i in range(f)])
+        opt = FS.StackedAdam(stack.flat, lr=cfg.lr,
+                             weight_decay=cfg.weight_decay)
+        out.append((TrainState(stack, {"params": opt}),
+                    FS.make_stacked_step(stack, opt, make_loss(cfg))))
+    return out
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fusion_stacked_graph_equals_eager(cuda_device, dtype):
+    """Stacked steps of 3 pairs replayed from their CUDA graphs (one per
+    ``do_step``) equal the same steps run eagerly on a twin stack bit for
+    bit, dropout on: steps 0-1 without Adam (epoch 0), 2-3 with it, pair 1
+    on an all-weight-0 batch at step 3, which moves neither its params nor
+    its counts."""
+    from cervical_tpu_torch.data.fusion_data import make_synthetic_fusion
+    from cervical_tpu_torch.data.masks import generate_modal_masks
+    from cervical_tpu_torch.train.graphs import GraphedCall
+    cfg = _fusion_trainer("cpu", dtype=dtype).cfg
+    ds = _fusion_trainer("cuda")._device_cohort(
+        make_synthetic_fusion(num_patients=30, feature_dim=64, seed=6))
+    (sa, step_a), (sb, step_b) = _stacked_twins(cfg, 3, cuda_device)
+    g = torch.Generator("cuda").manual_seed(2)
+    idx = torch.randint(0, 30, (4, 3, 8), generator=g, device="cuda")
+    masks = generate_modal_masks(g, 96, 4).view(4, 3, 8, 4)
+    w = torch.ones((4, 3, 8), device="cuda")
+    w[3, 1] = 0
+    w[3, 2, 5:] = 0
+    lr = torch.full((), 1e-3, device="cuda")
+    calls = {d: GraphedCall(
+        lambda i, m, ww, l, d=d: step_a(ds["feats"], ds["labels"], i, m, ww,
+                                        l, d),
+        sa, (idx[0], masks[0], w[0], lr), cuda_device) for d in (False, True)}
+    for k in range(4):
+        if k == 3:
+            held = sa.model.flat[1].clone()
+        ma = calls[k >= 2](idx[k], masks[k], w[k], lr)
+        mb = step_b(ds["feats"], ds["labels"], idx[k], masks[k], w[k], lr,
+                    k >= 2)
+        for key in ma:
+            assert torch.equal(ma[key], mb[key]), (k, key)
+        assert torch.isfinite(ma["loss"]).all()
+    oa, ob = (s.opt_state["params"].state[s.model.flat] for s in (sa, sb))
+    assert torch.equal(sa.model.flat, sb.model.flat)
+    assert torch.equal(sa.model.rng, sb.model.rng)
+    assert all(torch.equal(oa[k], ob[k]) for k in oa)
+    assert torch.equal(sa.model.flat[1], held)
+    assert oa["step"].tolist() == [2.0, 1.0, 2.0]
+    assert sa.model.rng[:, 1].tolist() == [4, 3, 4]
+
+
+def test_fusion_bf16_step_graph_equals_eager(cuda_device):
+    """The sequential train step in bf16: graph replays equal eager steps
+    bit for bit, finite losses, f32 params."""
+    from cervical_tpu_torch.data.fusion_data import make_synthetic_fusion
+    from cervical_tpu_torch.data.masks import generate_modal_masks
+    ds = make_synthetic_fusion(num_patients=20, feature_dim=64, seed=2)
+    ga = _fusion_trainer("cuda", dtype="bfloat16")
+    gb = _fusion_trainer("cuda", dtype="bfloat16")
+    sa, sb = ga.init_state(), gb.init_state()
+    dev = ga._device_cohort(ds)
+    call = ga._batch_step(sa, dev["feats"], dev["labels"], 8, True)
+    masks = generate_modal_masks(torch.Generator("cuda").manual_seed(1),
+                                 3 * 8, 4).reshape(3, 8, 4)
+    w = torch.ones(8, device="cuda")
+    for i in range(3):
+        idx = torch.randint(0, 20, (8,), device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(i))
+        ma = call(idx, masks[i], w, ga._lr_arg(1e-3))
+        mb = gb.train_step_fn()(
+            sb, {m: v.index_select(0, idx) for m, v in dev["feats"].items()},
+            dev["labels"].index_select(0, idx), masks[i], w,
+            gb._lr_arg(1e-3), True)
+        for k in ma:
+            assert torch.equal(ma[k], mb[k]), (i, k)
+        assert torch.isfinite(ma["loss"])
+    assert _fusion_states_equal(sa, sb)
+    assert all(p.dtype == torch.float32 for p in sa.model.parameters())
+
+
+def test_fusion_vmapped_cv_on_card_matches_sequential(cuda_device, tmp_path):
+    """``cross_validate(vmap_folds=True)`` on the card against the
+    sequential engine there, at the CPU test's size and tolerances (folds
+    of 3 and 4 batches)."""
+    from cervical_tpu_torch.data.fusion_data import make_synthetic_fusion
+    ds = make_synthetic_fusion(num_patients=48, feature_dim=32, seed=5)
+    kw = dict(in_features=32, hidden=64, epochs=3, kfold=3)
+    seq = _fusion_trainer("cuda", **kw).cross_validate(
+        ds, log=lambda *a: None)
+    vm = _fusion_trainer("cuda", **kw).cross_validate(
+        ds, log=lambda *a: None, save_dir=str(tmp_path), vmap_folds=True)
+    assert len(seq["folds"]) == len(vm["folds"]) == 3
+    for a, b in zip(seq["folds"], vm["folds"]):
+        assert a["best_epoch"] == b["best_epoch"]
+        assert abs(a["val_acc"] - b["val_acc"]) <= 1e-5
+        assert abs(a["test"]["acc_all"] - b["test"]["acc_all"]) <= 1e-6
+        assert np.array_equal(a["test"]["confusion"], b["test"]["confusion"])
+        for ea, eb in zip(a["epoch_test"], b["epoch_test"]):
+            assert abs(ea["acc_all"] - eb["acc_all"]) <= 1e-6
+            assert abs(ea["loss"] - eb["loss"]) <= 1e-4
+    assert (tmp_path / "best_seed0_fold2.npz").exists()

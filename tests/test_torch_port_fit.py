@@ -229,9 +229,9 @@ def test_train_seg_cli_defaults_to_cuda_and_refuses_multihost(voc_root,
     train_seg.main(["--data.dataset_path", voc_root, "--unfreeze_epoch", "3"])
     assert made[0][1] == "cuda" and made[0][0].unfreeze_epoch == 3
     assert made[1] == (16, 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="§1 item 8"):
         train_seg.main(["--multihost", "true"])
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="§1 item 8"):
         train_seg.main(["--coordinator=localhost:1234"])
 
 

@@ -214,25 +214,43 @@ def test_train_fusion_cli(tmp_path):
     assert len(res["folds"]) == 3 and not res["stopped_early"]
     assert (tmp_path / "out" / "best_seed0_fold2.npz").exists()
     assert len(os.listdir(tmp_path / "log")) == 1
-    # the JAX package's fold-stacked engine is not ported: it raises
+    # the fold-stacked engine, two pairs at a time (groups of 2 + 1): the
+    # same files, and per fold the sequential CLI's results
     r = _run(["cervical_tpu_torch.train_fusion", "--cohort",
-              str(tmp_path / "cohort.npz"), "--vmap_folds", "true",
-              "--device", "cpu"], str(tmp_path))
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr
+              str(tmp_path / "cohort.npz"), "--in_features", "32",
+              "--hidden", "64", "--epochs", "2", "--kfold", "3",
+              "--save_dir", str(tmp_path / "vm"), "--vmap_folds", "true",
+              "--vmap_group", "2", "--device", "cpu"], str(tmp_path))
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "group 1: epochs 2/2" in r.stdout
+    assert sorted(os.listdir(tmp_path / "vm")) == \
+        sorted(os.listdir(tmp_path / "out"))
+    with open(tmp_path / "vm" / "cv_results.json") as f:
+        vm = json.load(f)
+    with open(tmp_path / "vm" / "cv_progress.json") as f:
+        assert len(json.load(f)["folds"]) == 3
+    for a, b in zip(res["folds"], vm["folds"]):
+        assert (a["seed"], a["fold"], a["best_epoch"]) == \
+            (b["seed"], b["fold"], b["best_epoch"])
+        assert abs(a["val_acc"] - b["val_acc"]) < 1e-5
+        assert abs(a["test"]["acc_all"] - b["test"]["acc_all"]) < 1e-6
+        assert a["test"]["confusion"] == b["test"]["confusion"]
 
 
 def test_train_fusion_build_config_arity_deltas():
     from cervical_tpu_torch.train_fusion import build_config
-    cfg, cohort, log_dir, device = build_config(
+    cfg, cohort, log_dir, vmap_folds, vmap_group, device = build_config(
         ["--modalities", '["imgN","imgA","imgL"]', "--kfold", "7",
          "--cohort", "c.npz"])
     assert (cfg.kfold, cfg.inner_test_size, cfg.weight_decay, cfg.lr_step) \
         == (7, 0.11, 1e-3, 30)
     assert cohort == "c.npz" and device == "cuda" and log_dir is None
-    # the fold-stacked engine's flags are not ported: given, they raise
-    for flags in (["--vmap_folds", "true"], ["--vmap_group", "5"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_config(flags)
+    assert (vmap_folds, vmap_group) == (False, 25)
+    # the fold-stacked engine's flags and bf16 go through to the trainer
+    cfg, _, _, vmap_folds, vmap_group, _ = build_config(
+        ["--vmap_folds", "true", "--vmap_group", "5", "--dtype",
+         "bfloat16"])
+    assert (vmap_folds, vmap_group, cfg.dtype) == (True, 5, "bfloat16")
 
 
 def test_predictor_agrees_with_trainer_predict(setup):

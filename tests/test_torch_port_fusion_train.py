@@ -47,7 +47,6 @@ from cervical_tpu_torch import metrics as PMet
 from cervical_tpu_torch.config import FusionTrainConfig, load_config
 from cervical_tpu_torch.data import splits as PS
 from cervical_tpu_torch.data.fusion_data import make_synthetic_fusion
-from cervical_tpu_torch.models.layers import Dropout
 from cervical_tpu_torch.train import fusion_trainer as PT
 from cervical_tpu_torch.train.flax_import import (flatten_params,
                                                   fusion_from_flax,
@@ -79,7 +78,7 @@ def _port_state(ptr, params, no_dropout=True):
     st.model.load_state_dict(fusion_from_flax(params), strict=True)
     if no_dropout:
         for m in st.model.modules():
-            if isinstance(m, Dropout):
+            if isinstance(m, torch.nn.Dropout):
                 m.p = 0.0
     return st
 
@@ -155,14 +154,9 @@ def test_config_and_arity_defaults_match_jax():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PT.FusionTrainer(FusionTrainConfig(dtype="bfloat16"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         PT.FusionTrainer(FusionTrainConfig(), device="cpu", mesh=object())
-    tr = PT.FusionTrainer(FusionTrainConfig(in_features=IN, hidden=HID),
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tr.cross_validate(make_synthetic_fusion(8, feature_dim=IN),
-                          vmap_folds=True)
+    with pytest.raises(ValueError, match="unknown dtype"):
+        PT.FusionTrainer(FusionTrainConfig(dtype="float16"), device="cpu")
 
 
 # -- one step: loss and gradients --------------------------------------------------
