@@ -16,10 +16,11 @@ dict ``modality -> (N, n_nodes, in_features)``, ``present`` an optional
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Sequence
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from cervical_tpu_torch.config import FusionTrainConfig
 from cervical_tpu_torch.data.fusion_data import node_count
@@ -44,6 +45,28 @@ def load_params_npz(path: str) -> Dict[str, torch.Tensor]:
     return fusion_from_flax(unflatten(flat))
 
 
+class _ServingForward(nn.Module):
+    """What the predictor serves: ``(feats, present) -> {head: (B,
+    num_classes) f32 softmax}``.  Absent slots are zeroed before the
+    encoders and hidden from the MAE encoder (:func:`imputation_masks`);
+    no branch depends on the data, so ``torch.export`` traces it."""
+
+    def __init__(self, model: nn.Module, modalities: Sequence[str]):
+        super().__init__()
+        self.model = model
+        self.modalities = tuple(modalities)
+
+    def forward(self, feats: Dict[str, torch.Tensor],
+                present: torch.Tensor) -> Dict[str, torch.Tensor]:
+        feats = {m: torch.where(present[:, i, None, None], feats[m],
+                                torch.zeros_like(feats[m]))
+                 for i, m in enumerate(self.modalities)}
+        out = self.model(feats, present=present,
+                         mae_mask=imputation_masks(present))
+        return {k: torch.softmax(v.to(torch.float32), dim=-1)
+                for k, v in out["logits"].items()}
+
+
 class FusionPredictor:
     """Batched inference over trained fusion weights on ``device``
     (``cuda`` by default).
@@ -52,7 +75,8 @@ class FusionPredictor:
       modality) for any cohort size: batches padded to ``batch_size`` by
       repeating the last row, the padding sliced off;
     * ``predict`` — argmax classes + the fused head's confidence;
-    * ``get_throughput`` — patients/s of the forward on the card.
+    * ``get_throughput`` — patients/s of the forward on the card;
+    * ``export_program`` — the forward as a ``torch.export`` program.
 
     Absent slots (``present`` False) are zeroed before the encoders (so no
     filler, NaN included, reaches them), hidden from the MAE encoder and
@@ -70,6 +94,7 @@ class FusionPredictor:
         self.model = build_model(cfg)
         self.model.load_state_dict(params)
         self.model.to(self.device).eval()
+        self._serve = _ServingForward(self.model, cfg.modalities)
 
     @classmethod
     def from_npz(cls, cfg: FusionTrainConfig, path: str,
@@ -82,13 +107,7 @@ class FusionPredictor:
     @torch.no_grad()
     def _forward(self, feats: Dict[str, torch.Tensor],
                  present: torch.Tensor) -> Dict[str, torch.Tensor]:
-        feats = {m: torch.where(present[:, i, None, None], feats[m],
-                                torch.zeros_like(feats[m]))
-                 for i, m in enumerate(self.cfg.modalities)}
-        out = self.model(feats, present=present,
-                         mae_mask=imputation_masks(present))
-        return {k: torch.softmax(v.to(torch.float32), dim=-1)
-                for k, v in out["logits"].items()}
+        return self._serve(feats, present)
 
     def predict_proba(self, feats, present=None) -> Dict[str, np.ndarray]:
         """dict head -> (N, num_classes) float32 softmax probabilities."""
@@ -154,8 +173,23 @@ class FusionPredictor:
         end.synchronize()
         return batch_size * iters / (start.elapsed_time(end) / 1e3)
 
-    def export_stablehlo(self, path: str, batch_size: int = 1) -> str:
-        raise NotImplementedError(
-            "export_stablehlo is the JAX package's StableHLO export; its "
-            "port, torch.export, is not done yet (ROADMAP §1, the rest of "
-            "serving)")
+    def export_program(self, path: str, batch_size: int = 1) -> str:
+        """Write the serving forward as a ``torch.export`` program
+        (``torch.export.save``, a ``.pt2`` file) with the weights embedded:
+        the port's counterpart of the JAX package's ``export_stablehlo``
+        (``cervical_tpu/inference/fusion_predictor.py:188``).  Inputs, as
+        in JAX's spec: ``feats`` a dict ``modality -> (batch_size, nodes,
+        in_features)`` f32 and ``present`` (batch_size, T) bool; output: a
+        dict ``head -> (batch_size, num_classes)`` f32 softmax.  It runs
+        on this predictor's device; ``torch.export.load(path).module()``
+        serves it."""
+        t = len(self.cfg.modalities)
+        feats = {m: torch.zeros((batch_size, node_count(m),
+                                 self.cfg.in_features), device=self.device)
+                 for m in self.cfg.modalities}
+        present = torch.ones((batch_size, t), dtype=torch.bool,
+                             device=self.device)
+        with torch.no_grad():
+            program = torch.export.export(self._serve, (feats, present))
+        torch.export.save(program, path)
+        return path

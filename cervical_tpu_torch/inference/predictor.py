@@ -1,10 +1,12 @@
 """Segmentation inference: letterboxed prediction, render modes, tiled
-native-resolution prediction, throughput — port of
+native-resolution prediction, throughput, ``torch.export`` — port of
 ``cervical_tpu/inference/predictor.py``.
 
 Reference: the ``DeeplabV3`` predictor class (``Segmentation/deeplabv3+/
 deeplab.py``): ``detect_image`` with three visualization modes (:108-209),
-``get_miou_png`` (:304-350), ``get_FPS`` (:211-264).  The model runs under
+``get_miou_png`` (:304-350), ``get_FPS`` (:211-264) and the ONNX export
+(:266-302), which the JAX package makes a StableHLO export and the port a
+``torch.export`` program (``.pt2``).  The model runs under
 ``torch.inference_mode()`` in eval mode and ``channels_last``, convs in the
 config's compute dtype, params and BatchNorm in fp32.
 """
@@ -16,6 +18,7 @@ from typing import Mapping, Optional
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from cervical_tpu_torch.config import SegTrainConfig
 from cervical_tpu_torch.ops.image import (letterbox_image, preprocess_input,
@@ -30,6 +33,19 @@ DEFAULT_COLORS = [
     (192, 128, 128), (0, 64, 0), (128, 64, 0), (0, 192, 0), (128, 192, 0),
     (0, 64, 128),
 ]
+
+
+class _ServingForward(nn.Module):
+    """What the predictor serves: NHWC images in the compute dtype -> NHWC
+    f32 softmax probabilities (``SegPredictor._run``)."""
+
+    def __init__(self, model: nn.Module):
+        super().__init__()
+        self.model = model
+
+    def forward(self, images):
+        logits = self.model(images.permute(0, 3, 1, 2))
+        return torch.softmax(logits, dim=1).permute(0, 2, 3, 1)
 
 
 class SegPredictor:
@@ -54,6 +70,7 @@ class SegPredictor:
         self.model = build_model(cfg, fused_middle=fused_middle).to(
             self.device, memory_format=torch.channels_last).eval()
         self.colors = colors or DEFAULT_COLORS
+        self._serve = _ServingForward(self.model)
         self.update_state(state)
 
     def update_state(self, state: Mapping[str, torch.Tensor]):
@@ -69,8 +86,7 @@ class SegPredictor:
         """(B, H, W, 3) preprocessed NHWC in the compute dtype -> (B, H, W,
         num_classes) f32 softmax probs.  The NCHW view of a contiguous NHWC
         batch is already ``channels_last``."""
-        logits = self.model(images.permute(0, 3, 1, 2))
-        return torch.softmax(logits, dim=1).permute(0, 2, 3, 1)
+        return self._serve(images)
 
     def _stage(self, images: np.ndarray) -> torch.Tensor:
         """uint8 (..., ih, iw, 3) -> letterboxed, scaled, compute dtype."""
@@ -230,13 +246,47 @@ class SegPredictor:
         self._sync()
         return batch_size * iters / (time.perf_counter() - t0)
 
+    # -- export ---------------------------------------------------------------
+    def export_program(self, path: str, batch_size: int = 1) -> str:
+        """Write the serving forward as a ``torch.export`` program
+        (``torch.export.save``, a ``.pt2`` file) with the weights embedded:
+        the port's counterpart of the JAX package's ``export_stablehlo``
+        (``cervical_tpu/inference/predictor.py:305``).  Input: (batch_size,
+        H, W, 3) preprocessed NHWC images at the config's input shape and
+        compute dtype; output: (batch_size, H, W, num_classes) f32 softmax
+        probabilities.  As in JAX, the program traces the unfused model (the
+        middle-flow kernels are the card's, not the program's); it runs on
+        this predictor's device.  ``torch.export.load(path).module()``
+        serves it."""
+        # contiguous weights: torch.export.save takes a channels_last 3x3
+        # kernel for a slice of a larger storage
+        plain = build_model(self.cfg).to(self.device).eval()
+        plain.load_state_dict(self.model.state_dict())
+        h, w = self.cfg.data.input_shape
+        example = torch.zeros((batch_size, h, w, 3), dtype=self.dtype,
+                              device=self.device)
+        with torch.no_grad():
+            program = torch.export.export(_ServingForward(plain), (example,))
+        torch.export.save(program, path)
+        return path
+
+    def export_savedmodel(self, path: str, batch_size: int = 1):
+        """Not ported: the JAX package's TF SavedModel export goes through
+        ``jax2tf`` into TensorFlow, which neither the port's machines nor
+        its dependencies have; the port's interchange format is the
+        ``torch.export`` program of :meth:`export_program`."""
+        raise NotImplementedError(
+            "export_savedmodel is the JAX package's TensorFlow export (via "
+            "jax2tf); the port has no TensorFlow and writes torch.export "
+            "programs instead: use export_program (a .pt2 file)")
+
 
 def evaluate_miou_dir(gt_dir: str, pred_dir: str, png_name_list,
                       num_classes: int, name_classes=None,
                       miou_out_path: Optional[str] = None):
     """File-walking mIoU evaluation (``compute_mIoU``,
-    utils_metrics.py:120-193) + optional confusion-matrix csv.  The
-    per-class bar charts of the JAX version are not ported yet."""
+    utils_metrics.py:120-193) + with ``miou_out_path`` the confusion-matrix
+    csv and the per-class bar charts (``show_results``, :226-250)."""
     import csv
     import os
     from PIL import Image
@@ -260,4 +310,30 @@ def evaluate_miou_dir(gt_dir: str, pred_dir: str, png_name_list,
             writer.writerow([" "] + names)
             for i, row in enumerate(summary["hist"]):
                 writer.writerow([names[i]] + [str(x) for x in row])
+        _write_metric_bars(summary, miou_out_path)
     return summary
+
+
+def _write_metric_bars(summary, out_dir: str):
+    """Per-class horizontal bar charts (``show_results``/``draw_plot_func``,
+    utils_metrics.py:204-241): mIoU.png, mPA.png, Recall.png,
+    Precision.png; none where matplotlib is missing."""
+    import os
+    from cervical_tpu_torch.metrics import draw_bar_chart
+    names = list(summary["names"])
+    plots = [
+        ("mIoU.png", summary["iou"],
+         f"mIoU = {np.nanmean(summary['iou']) * 100:.2f}%",
+         "Intersection over Union"),
+        ("mPA.png", summary["recall"],
+         f"mPA = {np.nanmean(summary['recall']) * 100:.2f}%",
+         "Pixel Accuracy"),
+        ("Recall.png", summary["recall"],
+         f"mRecall = {np.nanmean(summary['recall']) * 100:.2f}%", "Recall"),
+        ("Precision.png", summary["precision"],
+         f"mPrecision = {np.nanmean(summary['precision']) * 100:.2f}%",
+         "Precision"),
+    ]
+    for fname, values, title, xlabel in plots:
+        draw_bar_chart(values, names, title, xlabel,
+                       os.path.join(out_dir, fname))

@@ -6,7 +6,8 @@ Submodules carry the reference torch model's names (``aspp.branch1.0``,
 ``aspp.branch5_conv``, ``aspp.conv_cat.0``, ``shortcut_conv.0``,
 ``cat_conv.0/.1/.4/.5``, ``cls_conv``), which is the scheme
 ``cervical_tpu/train/torch_import.convert_deeplab`` reads.  NCHW in; fp32
-logits out at input resolution.  Xception only in this port so far.
+logits out at input resolution.  Backbones: ``xception`` and
+``mobilenet``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
+from cervical_tpu_torch.models.backbones.mobilenetv2 import MobileNetV2Backbone
 from cervical_tpu_torch.models.backbones.xception import XceptionBackbone
 from cervical_tpu_torch.models.layers import Dropout
 from cervical_tpu_torch.ops.conv import BatchNorm2d, Conv2d
@@ -74,11 +76,12 @@ class DeepLab(nn.Module):
     """DeepLabV3+ (deeplabv3_plus.py:116-188).
 
     ``dtype`` is the compute dtype (params stay fp32).  ``fused_middle``
-    routes the backbone's blocks 4-19 through the middle-flow kernels in
-    eval mode.  ``forward(x, resize_logits=True)``: (B, 3, H, W) ->
-    fp32 logits (B, num_classes, H, W).  In train mode BatchNorm uses batch
-    statistics and the two head dropouts (0.5, 0.1) draw from generators
-    seeded with ``dropout_seed`` and ``dropout_seed + 1``.
+    routes the Xception backbone's blocks 4-19 through the middle-flow
+    kernels in eval mode (with ``mobilenet`` it raises, as in JAX).
+    ``forward(x, resize_logits=True)``: (B, 3, H, W) -> fp32 logits (B,
+    num_classes, H, W).  In train mode BatchNorm uses batch statistics and
+    the two head dropouts (0.5, 0.1) draw from generators seeded with
+    ``dropout_seed`` and ``dropout_seed + 1``.
     """
 
     def __init__(self, num_classes: int = 5, backbone: str = "xception",
@@ -89,19 +92,23 @@ class DeepLab(nn.Module):
         if downsample_factor not in (8, 16):
             raise ValueError(
                 f"downsample_factor must be 8 or 16, got {downsample_factor}")
-        if backbone == "mobilenet":
-            raise NotImplementedError(
-                "the MobileNetV2 backbone is not ported yet: it comes in the "
-                "port's MobileNetV2 slice, after the training slice")
-        if backbone != "xception":
+        dt = dtype
+        if backbone == "xception":
+            self.backbone = XceptionBackbone(
+                downsample_factor, compute_dtype=dt, fused_middle=fused_middle)
+            deep_ch, low_ch = 2048, 256
+        elif backbone == "mobilenet":
+            if fused_middle:
+                raise ValueError("fused_middle is an xception-only fast path")
+            self.backbone = MobileNetV2Backbone(downsample_factor,
+                                                compute_dtype=dt)
+            deep_ch, low_ch = 320, 24
+        else:
             raise ValueError(
                 f"Unsupported backbone - `{backbone}`, use mobilenet, xception.")
-        dt = dtype
-        self.backbone = XceptionBackbone(downsample_factor, compute_dtype=dt,
-                                         fused_middle=fused_middle)
-        self.aspp = ASPP(2048, 256, rate=16 // downsample_factor,
+        self.aspp = ASPP(deep_ch, 256, rate=16 // downsample_factor,
                          compute_dtype=dt)
-        self.shortcut_conv = _conv_bn_relu(256, 48, 1, compute_dtype=dt)
+        self.shortcut_conv = _conv_bn_relu(low_ch, 48, 1, compute_dtype=dt)
         self.cat_conv = nn.Sequential(
             Conv2d(304, 256, 3, padding=1, bias=True, compute_dtype=dt),
             BatchNorm2d(256, **_BN), nn.ReLU(), Dropout(0.5, dropout_seed),

@@ -4,14 +4,17 @@
 Usage:
     python -m cervical_tpu_torch.predict --ckpt weights.pt --image x.jpg \
         [--mix_type 0] [--out out.png] [--fps 100] [--count true] \
-        [--fused_middle true] [--tiled true] [--device cuda]
+        [--fused_middle true] [--tiled true] [--export model.pt2] \
+        [--backbone mobilenet] [--device cuda]
 
 ``--ckpt``: a port ``state_dict`` saved with ``torch.save`` (``.pt``), or
 flax-layout weights in an ``.npz`` keyed ``params/<path>`` and
 ``batch_stats/<path>`` (read through ``train/flax_import.py``).  Without
 ``--ckpt`` the model takes a random init seeded by ``--seed``.
-``--fused_middle``: run backbone blocks 4-19 through the middle-flow
-kernels.  ``--export`` (StableHLO in the JAX CLI) is not ported yet.
+``--fused_middle``: run the Xception backbone's blocks 4-19 through the
+middle-flow kernels.  ``--export PATH`` writes the serving forward as a
+``torch.export`` program (``SegPredictor.export_program``; StableHLO in the
+JAX CLI) and exits; the program always traces the unfused model.
 """
 
 from __future__ import annotations
@@ -49,12 +52,13 @@ def main(argv):
     args = parse_cli_overrides(argv)
     cfg = load_config(SegTrainConfig, args.pop("config", None),
                       {k: v for k, v in args.items() if k not in _CLI_KEYS})
-    if "export" in args:
-        raise NotImplementedError(
-            "--export is not ported yet: torch.export comes in a later slice")
     predictor = SegPredictor(cfg, load_state(cfg, args.get("ckpt")),
                              fused_middle=bool(args.get("fused_middle", False)),
                              device=args.get("device", "cuda"))
+    if "export" in args:
+        path = predictor.export_program(args["export"])
+        print(f"exported a torch.export program to {path}")
+        return
 
     from PIL import Image
     image = np.asarray(Image.open(args["image"]).convert("RGB"))

@@ -5,14 +5,16 @@ Usage:
     python -m cervical_tpu_torch.predict_fusion --cohort cohort.npz \
         --params logs_fusion/best_seed0_fold0.npz \
         [--modalities '["imgN","imgA","imgL","cli"]'] [--in_features 1024] \
-        [--out preds.json] [--throughput 512] [--device cuda]
+        [--out preds.json] [--export fusion.pt2] [--throughput 512] \
+        [--device cuda]
 
 ``--params``: a ``best_seed{S}_fold{F}.npz`` written by either package's
 ``cross_validate``.  Writes per-patient fused + per-modality classes and
 probabilities (and the accuracy where the cohort has labels);
+``--export PATH`` writes the forward as a ``torch.export`` program
+(``FusionPredictor.export_program``; StableHLO in the JAX CLI);
 ``--throughput N`` measures patients/s at batch N on the card.
-``--device`` defaults to ``cuda``.  ``--export`` (StableHLO in the JAX CLI)
-is not ported yet and raises.
+``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -35,24 +37,22 @@ def main(argv):
 
     args = parse_cli_overrides(argv)
     cli = {k: args.pop(k) for k in _CLI_KEYS if k in args}
-    if "export" in cli:
-        raise NotImplementedError(
-            "--export is not ported yet: torch.export in place of the "
-            "StableHLO export is ROADMAP §1's rest-of-serving item")
     cfg = load_config(FusionTrainConfig, cli.get("config"), args)
     if "params" not in cli:
         raise SystemExit("--params path/to/best_seed0_fold0.npz is required")
     predictor = FusionPredictor.from_npz(cfg, cli["params"],
                                          device=cli.get("device", "cuda"))
 
+    if "export" in cli:
+        print(f"exported {predictor.export_program(cli['export'])}")
     if "throughput" in cli:
         bs = int(cli["throughput"])
         tput = predictor.get_throughput(batch_size=bs)
         print(f"throughput: {tput:.1f} patients/sec at batch {bs}")
     if "cohort" not in cli:
-        if "throughput" not in cli:
+        if "throughput" not in cli and "export" not in cli:
             raise SystemExit("--cohort path/to/cohort.npz is required "
-                             "(or use --throughput)")
+                             "(or use --export / --throughput)")
         return
 
     # feats AND present columns aligned to the model's modalities (a

@@ -82,21 +82,48 @@ def _xception(m: _InverseMapper, fx: Tuple[str, ...], tp: str):
         sepconv(fx + (f"conv{k}",), f"{tp}conv{k}")
 
 
+def _mobilenetv2(m: _InverseMapper, fx: Tuple[str, ...], tp: str):
+    """The inverse of ``convert_mobilenetv2``: flax ``stem``/``blockN``
+    -> ``features.0.{0,1}`` and ``features.N.conv.*`` (expansion 1: the
+    depthwise at .0/.1, the projection at .3/.4; else the expansion at
+    .0/.1, the depthwise at .3/.4, the projection at .6/.7)."""
+    from cervical_tpu_torch.models.backbones.mobilenetv2 import \
+        INVERTED_RESIDUAL_SETTING
+    m.conv(fx + ("stem", "conv"), tp + "features.0.0")
+    m.bn(fx + ("stem", "bn"), tp + "features.0.1")
+    idx = 1
+    for t, _, n, _ in INVERTED_RESIDUAL_SETTING:
+        for _ in range(n):
+            bx, bt = fx + (f"block{idx}",), f"{tp}features.{idx}.conv"
+            k = 0
+            if t != 1:
+                m.conv(bx + ("expand", "conv"), f"{bt}.0")
+                m.bn(bx + ("expand", "bn"), f"{bt}.1")
+                k = 3
+            m.conv(bx + ("depthwise", "conv"), f"{bt}.{k}")
+            m.bn(bx + ("depthwise", "bn"), f"{bt}.{k + 1}")
+            m.conv(bx + ("project",), f"{bt}.{k + 3}")
+            m.bn(bx + ("project_bn",), f"{bt}.{k + 4}")
+            idx += 1
+
+
+_BACKBONES = {"xception": _xception, "mobilenet": _mobilenetv2}
+
+
 def deeplab_from_flax(params: Dict, batch_stats: Optional[Dict],
                       backbone: str = "xception") -> Dict[str, torch.Tensor]:
     """Flax ``DeepLab`` params/batch_stats -> a ``state_dict`` for
     :class:`cervical_tpu_torch.models.deeplab.DeepLab` (fp32 tensors;
-    ``num_batches_tracked`` set to 0).  With ``batch_stats=None`` any
-    params-shaped tree maps to parameter names only, and the top-level
-    parts it lacks (``backbone``, or the head's) are skipped."""
-    if backbone == "mobilenet":
-        raise NotImplementedError(
-            "the MobileNetV2 backbone is not ported yet (its own slice)")
-    if backbone != "xception":
+    ``num_batches_tracked`` set to 0): the inverse of ``convert_deeplab``
+    for ``backbone`` "xception" or "mobilenet".  With
+    ``batch_stats=None`` any params-shaped tree maps to parameter names
+    only, and the top-level parts it lacks (``backbone``, or the head's)
+    are skipped."""
+    if backbone not in _BACKBONES:
         raise ValueError(f"unknown backbone {backbone!r}")
     m = _InverseMapper(params, batch_stats)
     if "backbone" in params:
-        _xception(m, ("backbone",), "backbone.")
+        _BACKBONES[backbone](m, ("backbone",), "backbone.")
     if "cls_conv" not in params:
         return m.sd
 

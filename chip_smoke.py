@@ -105,8 +105,31 @@
    peak memory); (d) bf16: a sequential and a stacked step, graph against
    eager bit for bit, finite losses.  No kernel of the port runs here: the
    fusion path has none.
-9. Prints one ``{"kernels": [...]}`` line (six kernels), then as the last
-   line ``{"ok": true, "device": {...}}``.
+9. Drives the MobileNetV2 DeepLab (``mobilenet`` phase) at 512², os16, 5
+   classes, bf16, seeded weights: ``SegPredictor.predict_masks`` on 16
+   synthetic 960x1280 images at batch 8 against the same weights in f32
+   (no argmax flip where the f32 top-2 gap exceeds twice the probs'
+   drift, >= 99% of pixels equal), its batched images/s beside
+   Xception's, a ``fused_middle=True`` predictor refused;
+   ``SegTrainer(SegTrainConfig(backbone="mobilenet"))`` for an unfrozen
+   and a frozen epoch on 136 / 16 synthetic images (each batch once, the
+   frozen epoch leaving the backbone and its Adam state bit-identical),
+   its 8-step graph call's ms/step and idle share, 8 replayed steps
+   against 8 eager ones bit for bit; ``export_program`` at batch 1, the
+   loaded ``.pt2`` within 1e-2 of the eager forward.  No kernel runs.
+10. Drives the patch featurizer and the cohort builder (``featurize``
+   phase): ``PatchFeaturizer(depth=101)`` at 256² patches on the card
+   against the CPU (4 patches, relative 1e-3), its patches/s at 16 and
+   128 and the seconds for the protocol's 84,384 patches; 24 synthetic
+   patients x 3 modalities of 512² PNGs (one without ``imgL``) through
+   the ``build_graphs`` CLI's folder walk, ``build_cli_features``,
+   ``assemble_cohort`` and ``save_npz``; ``python -m
+   cervical_tpu_torch.train_fusion`` on that cohort for 2 epochs (5
+   folds, every loss finite) and ``predict_fusion`` on its best params;
+   beside them ``python -m cervical_tpu_torch.eval_miou`` in dirs mode,
+   its matrix summing to the pixel count.  No kernel runs.
+11. Prints the seconds per phase, one ``{"kernels": [...]}`` line (six
+   kernels), then as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, if any check fails, if there is no
 CUDA device, or if the ``cervical_tpu_torch`` package is not beside it.
@@ -384,7 +407,9 @@ def random_state(torch, model, g):
         elif k.endswith("running_mean"):
             out[k] = 0.05 * torch.randn(v.shape, generator=g)
         elif v.ndim == 1 and k.endswith(".weight"):
-            loc = 0.1 if "sepconv3.bn2" in k else 1.0
+            # Xception's and MobileNetV2's (an expanding block's
+            # projection) closing BatchNorms
+            loc = 0.1 if "sepconv3.bn2" in k or ".conv.7." in k else 1.0
             out[k] = loc + 0.02 * torch.randn(v.shape, generator=g)
         elif v.ndim == 1:
             out[k] = 0.05 * torch.randn(v.shape, generator=g)
@@ -465,7 +490,7 @@ def predictor_phase(torch, MF, g, input_shape=(512, 512),
            "decided_share": float(decided.mean()), "decided_flips": flips,
            "class_histogram": hist}
     print("predictor " + json.dumps(res))
-    return launches
+    return launches, res
 
 
 def one_step_ok(torch, got, ref, step_rel=2.0 ** -7, step_abs=0.0,
@@ -1941,6 +1966,397 @@ def fusion_phase(torch, card, n=1758, dim=None, hidden=None, device="cuda",
     return res
 
 
+def mobilenet_phase(torch, g, card, xception=None, input_shape=(512, 512),
+                    image_hw=(960, 1280), n_train=136, n_val=16,
+                    device="cuda", timing=True):
+    """The MobileNetV2 DeepLab (os16, 5 classes, bf16, seeded weights):
+    ``SegPredictor.predict_masks`` against the same weights in f32, its
+    images/s beside Xception's (``xception``: the predictor phase's
+    readings), the fused path refused; ``SegTrainer`` on
+    ``SegTrainConfig(backbone="mobilenet")`` for an unfrozen and a frozen
+    epoch, 8 graph-replayed steps against 8 eager ones, ms/step and the
+    idle share; ``export_program`` at batch 1 against the eager forward.
+    ``input_shape``/``image_hw``/``n_train``/``timing`` shrink it for a CPU
+    rehearsal."""
+    import dataclasses
+    import gc
+    import tempfile
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import profile
+    from cervical_tpu_torch.config import SegTrainConfig
+    from cervical_tpu_torch.data.voc import ArraySegDataset, BatchLoader
+    from cervical_tpu_torch.inference.predictor import SegPredictor
+    from cervical_tpu_torch.ops import middle_flow as MF
+    from cervical_tpu_torch.ops import warp as W
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer, build_model
+
+    cfg = SegTrainConfig(backbone="mobilenet")
+    check((cfg.downsample_factor, cfg.data.num_classes, cfg.dtype,
+           cfg.data.aug_backend, cfg.steps_per_call) ==
+          (16, 5, "bfloat16", "einsum", 8), "SegTrainConfig defaults")
+    cfg.data.input_shape = input_shape
+    h, w = input_shape
+    dev = torch.device(device)
+    res = {"config": f"mobilenet os16 {h}x{w} 5 classes bf16", "card": card}
+    state = random_state(torch, build_model(cfg), g)
+    MF.reset_launches()
+    W.reset_launches()
+
+    # serving: bf16 masks against the same weights in f32
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    bf, fp = (SegPredictor(c, state, device=device) for c in (cfg, f32))
+    n, batch = 16, 8
+    images = torch.randint(0, 256, (n,) + tuple(image_hw) + (3,),
+                           generator=g, dtype=torch.uint8).numpy()
+    bf.predict_masks(images[:batch], batch)  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    masks = bf.predict_masks(images, batch)
+    dt = time.perf_counter() - t0
+    ref = fp.predict_masks(images, batch)
+    check(masks.shape == (n,) + tuple(image_hw) and
+          int(masks.max()) < cfg.data.num_classes, f"masks {masks.shape}")
+    agree = float((masks == ref).mean())
+    probs, ref_probs = bf.predict_probs(images[0]), fp.predict_probs(images[0])
+    pdiff = float(abs(probs - ref_probs).max())
+    top2 = torch.from_numpy(ref_probs).topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1] > 2 * pdiff).numpy()
+    flips = int((probs.argmax(-1) != ref_probs.argmax(-1))[decided].sum())
+    print(f"mobilenet predict_masks: {n} images {image_hw} at batch {batch} "
+          f"in {dt:.3f} s = {n / dt:.2f} images/s; bf16 vs f32 masks agree "
+          f"on {agree:.6f} of pixels; probs max abs diff {pdiff:.4g}, "
+          f"argmax flips {flips} on the {decided.mean():.4%} of pixels "
+          f"whose f32 top-2 gap exceeds {2 * pdiff:.3g}")
+    # random weights leave some pixels within the bf16 drift of a tie:
+    # there the argmax may go either way; nowhere else
+    check(flips == 0, f"{flips} bf16 argmax flips beyond the probs drift")
+    check(agree >= 0.99, f"bf16/f32 masks agree on only {agree:.4f}")
+    res.update({"predict_masks_img_s": n / dt, "mask_agreement_bf16_f32":
+                agree, "probs_max_abs_diff": pdiff,
+                "decided_share": float(decided.mean()),
+                "decided_flips": flips})
+    if timing:
+        res["throughput_img_s"] = bf.get_throughput(batch)
+        print(f"batched forward, batch {batch}: mobilenet "
+              f"{res['throughput_img_s']:.1f} images/s ({card})")
+        if xception is not None:
+            res["xception_throughput_img_s"] = \
+                xception["throughput_unfused_img_s"]
+            print(f"  xception in this call: "
+                  f"{xception['throughput_unfused_img_s']:.1f} images/s, "
+                  f"with the K4 kernels "
+                  f"{xception['throughput_fused_img_s']:.1f}")
+    try:
+        SegPredictor(cfg, state, fused_middle=True, device=device)
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "a mobilenet SegPredictor took fused_middle=True")
+
+    # export at batch 1: the loaded program against the eager forward
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_export_") as tmp:
+        t0 = time.perf_counter()
+        path = bf.export_program(os.path.join(tmp, "seg.pt2"))
+        export_s = time.perf_counter() - t0
+        program = torch.export.load(path).module()
+        x = bf._stage(images[:1])
+        with torch.no_grad():
+            got = program(x)
+        want = bf._run(x)
+        err = float((got.float() - want.float()).abs().max())
+        size = os.path.getsize(path)
+    check(tuple(got.shape) == (1, h, w, 5) and err <= 1e-2,
+          f"exported program against the eager forward: {err}")
+    res["export"] = {"seconds": export_s, "bytes": size, "max_abs_err": err}
+    print(f"export_program: {size / 2 ** 20:.1f} MiB in {export_s:.1f} s; "
+          f"loaded program vs eager forward max abs {err:.3g}")
+    del bf, fp, program
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training: an unfrozen and a frozen epoch, each batch once
+    rng = np.random.default_rng(int(torch.randint(0, 2 ** 31, (1,),
+                                                  generator=g)))
+    tr_im = rng.integers(0, 256, (n_train, h, w, 3), dtype=np.uint8)
+    tr_lb = rng.integers(0, 5, (n_train, h, w), dtype=np.uint8)
+    va_im = rng.integers(0, 256, (n_val, h, w, 3), dtype=np.uint8)
+    va_lb = rng.integers(0, 5, (n_val, h, w), dtype=np.uint8)
+    train = ArraySegDataset(tr_im, tr_lb)
+    val_loader = BatchLoader(ArraySegDataset(va_im, va_lb),
+                             cfg.eval_batch_size, shuffle=False,
+                             drop_last=False)
+    k, bs = cfg.steps_per_call, cfg.unfreeze_batch_size
+    trainer = SegTrainer(cfg, device=device)
+    lr = trainer.lr_schedule(bs, cfg.unfreeze_epoch)(0)
+    epochs = []
+    for frozen in (False, True):
+        b = cfg.freeze_batch_size if frozen else bs
+        loader = BatchLoader(train, b, seed=9 + frozen)
+        model = trainer.state.model
+        snap = {q: p.detach().clone()
+                for q, p in model.backbone.named_parameters()}
+        adam = {id(p): {q: v.clone() for q, v in st.items()} for p, st in
+                trainer.state.opt_state["backbone"].state.items()}
+        step0 = trainer.state.step
+        t0 = time.perf_counter()
+        r = trainer.run_epoch(loader, val_loader, int(frozen), frozen, lr)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        steps = trainer.state.step - step0
+        check(steps == len(loader) == n_train // b,
+              f"{steps} steps for {len(loader)} batches")
+        check(all(math.isfinite(v) for v in (r.train_loss, r.val_loss,
+                                             r.train_f_score)),
+              f"non-finite epoch metrics {r}")
+        if frozen:
+            same = all(torch.equal(p, snap[q])
+                       for q, p in model.backbone.named_parameters())
+            same_adam = all(
+                torch.equal(v, adam[id(p)][q]) for p, st in
+                trainer.state.opt_state["backbone"].state.items()
+                for q, v in st.items())
+            check(same and same_adam, "the frozen mobilenet epoch moved the "
+                  "backbone's params or its Adam state")
+        print(f"mobilenet run_epoch (frozen={frozen}, batch {b}): {steps} "
+              f"steps, eval of {n_val}, {dt:.3f} s; loss {r.train_loss:.5f} "
+              f"val {r.val_loss:.5f}")
+        epochs.append({"frozen": frozen, "batch": b, "steps": steps,
+                       "seconds": dt, "train_loss": r.train_loss,
+                       "val_loss": r.val_loss})
+    res["epochs"] = epochs
+    hist = trainer.evaluate_miou(val_loader)["hist"]
+    check(int(hist.sum()) == n_val * h * w, f"mIoU matrix counts "
+          f"{int(hist.sum())} pixels, expected {n_val * h * w}")
+    xk = torch.from_numpy(tr_im[:k * bs].reshape(k, bs, h, w, 3)).to(dev)
+    lk = torch.from_numpy(tr_lb[:k * bs].reshape(k, bs, h, w)).to(dev)
+    if timing:
+        m, bz, i = timed_steps(torch, profile, DeviceType,
+                               lambda: trainer.train_steps(xk, lk, False, lr),
+                               k)
+        res["graph_call"] = {"step_ms": m, "images_per_s": bs * 1e3 / m,
+                             "device_busy_ms_per_step": bz, "idle_share": i}
+        print(f"mobilenet {k}-step graph call: {m:.3f} ms/step = "
+              f"{bs * 1e3 / m:.1f} images/s, busy {bz:.3f} ms, idle "
+              + ("not measured" if i is None else f"{i:.4f}") + f" ({card})")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 8 graph replays against 8 eager steps from one seed
+    tg, te = SegTrainer(cfg, device=device), SegTrainer(cfg, device=device)
+    mg = tg.train_steps(xk, lk, False, lr)["loss"]
+    me = torch.stack([te.train_step(xk[i], lk[i], False, lr)["loss"]
+                      for i in range(k)])
+    torch.cuda.synchronize()
+    same_model, same_adam = states_equal(torch, tg.state, te.state)
+    bitwise = bool(torch.equal(mg, me)) and same_model and same_adam
+    check(bitwise and tg.state.step == te.state.step == k,
+          f"mobilenet: {k} graph-replayed steps differ from {k} eager steps "
+          f"(losses {torch.equal(mg, me)}, model {same_model}, Adam "
+          f"{same_adam})")
+    res["graph_vs_eager_bitwise"] = bitwise
+    launches = {**W.LAUNCHES, **MF.LAUNCHES}
+    check(sum(launches.values()) == 0, f"the mobilenet path launched "
+          f"kernels {launches}")
+    print(f"mobilenet graph against eager, {k} steps: bitwise {bitwise}; "
+          f"kernel launches {launches}")
+    del tg, te
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("mobilenet " + json.dumps(res))
+    return res
+
+
+def featurize_phase(torch, card, depth=101, n_patients=24, image_size=512,
+                    device="cuda", timing=True):
+    """The patch featurizer and the cohort builder: ``PatchFeaturizer``
+    (ResNet-``depth``, 256² patches, 1024-d, fp32, seeded weights) on the
+    card against the CPU, its patches/s at 16 and 128; then
+    ``n_patients`` synthetic patients x 3 modalities of ``image_size``²
+    PNGs (one patient without ``imgL``) through the ``build_graphs``
+    CLI's folder walk, ``build_cli_features``, ``assemble_cohort`` and
+    ``save_npz``; the ``train_fusion`` CLI on that cohort for 2 epochs and
+    ``predict_fusion`` on its best params; ``eval_miou`` in dirs mode."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from PIL import Image
+    from cervical_tpu_torch.build_graphs import featurize_folders
+    from cervical_tpu_torch.data.fusion_data import load_npz, save_npz
+    from cervical_tpu_torch.data.graphs import (PatchFeaturizer,
+                                                assemble_cohort,
+                                                build_cli_features)
+    from cervical_tpu_torch.ops import middle_flow as MF
+    from cervical_tpu_torch.ops import warp as W
+
+    res = {"config": f"ResNet-{depth} 256x256 patches -> 1024, fp32",
+           "card": card}
+    seconds = {}
+    MF.reset_launches()
+    W.reset_launches()
+    t0 = time.perf_counter()
+    feat = PatchFeaturizer(depth=depth, seed=0, device=device)
+    cpu = PatchFeaturizer(depth=depth, state={
+        q: v.cpu() for q, v in feat.model.state_dict().items()}, device="cpu")
+    g = torch.Generator().manual_seed(12)
+    patches = torch.randint(0, 256, (4, 256, 256, 3), generator=g,
+                            dtype=torch.uint8).numpy()
+    got, ref = feat(patches), cpu(patches)
+    rel = float(np.abs(got - ref).max() / np.abs(ref).max())
+    check(got.shape == (4, 1024) and got.dtype == np.float32 and
+          np.isfinite(got).all() and rel <= 1e-3,
+          f"featurizer card against CPU: relative {rel}")
+    res["card_vs_cpu_rel"] = rel
+    print(f"PatchFeaturizer(depth={depth}) card vs CPU on 4 patches: max abs "
+          f"diff {rel:.3g} of the largest feature")
+    del cpu
+    seconds["card_vs_cpu"] = time.perf_counter() - t0
+
+    if timing:
+        protocol = 1758 * 3 * 16
+        for b in (16, 128):
+            xs = torch.randint(0, 256, (b, 256, 256, 3), generator=g,
+                               dtype=torch.uint8).numpy()
+            feat(xs)  # warm-up: cuDNN picks its algorithms per shape
+            runs = max(2, 256 // b)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            for _ in range(runs):
+                feat(xs)
+            rate = b * runs / (time.perf_counter() - t1)
+            res[f"patches_per_s_batch{b}"] = rate
+            res[f"protocol_seconds_batch{b}"] = protocol / rate
+            print(f"featurizer batch {b}: {rate:.1f} patches/s (upload, "
+                  f"forward and download, host clock) -> "
+                  f"{protocol / rate:.1f} s for the protocol's {protocol} "
+                  f"patches ({card})")
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_featurize_")
+    evaluator = None
+    try:
+        # a cohort from images: the CLI's folder walk, ages, save_npz
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(13)
+        ids = [f"P{i:03d}" for i in range(n_patients)]
+        folders = {}
+        for mod in ("imgN", "imgA", "imgL"):
+            folders[mod] = os.path.join(tmp, mod)
+            os.makedirs(folders[mod])
+            for pid in ids:
+                if mod == "imgL" and pid == ids[-1]:
+                    continue
+                low = rng.integers(0, 256, (16, 16, 3)).astype(np.uint8)
+                Image.fromarray(low).resize((image_size, image_size)).save(
+                    os.path.join(folders[mod], f"{pid}_{mod}.png"),
+                    compress_level=1)
+        seconds["write_pngs"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lines = []
+        image_feats = featurize_folders(feat, ids, folders, log=lines.append)
+        torch.cuda.synchronize()
+        seconds["featurize_images"] = time.perf_counter() - t0
+        check(len(lines) == 3 * n_patients - 1, f"{len(lines)} images")
+        ages = {pid: int(a) for pid, a in
+                zip(ids, rng.integers(20, 70, n_patients))}
+        diagnosis = {pid: i % 4 for i, pid in enumerate(ids)}
+        ds = assemble_cohort(image_feats, build_cli_features(ages), diagnosis)
+        cohort = os.path.join(tmp, "cohort.npz")
+        save_npz(cohort, ds)
+        back = load_npz(cohort)
+        check(back["ids"] == sorted(ids) and
+              int((~back["present"]).sum()) == 1 and
+              not back["present"][-1, 2] and
+              all(v.shape == (n_patients, 4 if m == "cli" else 16, 1024)
+                  and np.isfinite(v).all() for m, v in back["feats"].items()),
+              "the cohort npz")
+        print(f"cohort: {n_patients} patients, {len(lines)} images "
+              f"featurized in {seconds['featurize_images']:.1f} s; present "
+              f"{back['present'].sum(0).tolist()}")
+
+        env = dict(os.environ, PYTHONPATH=HERE)
+        dev_args = ["--device", device]
+
+        # eval_miou in dirs mode on two PNG folders, on the host, in a
+        # process of its own beside the fusion CLIs
+        names = [f"m{i}" for i in range(6)]
+        for d in ("gt", "pred"):
+            os.makedirs(os.path.join(tmp, d))
+            for name in names:
+                Image.fromarray(rng.integers(0, 5, (96, 128)).astype(
+                    np.uint8)).save(os.path.join(tmp, d, name + ".png"))
+        with open(os.path.join(tmp, "ids.txt"), "w") as f:
+            f.write("\n".join(names) + "\n")
+        t_eval = time.perf_counter()
+        evaluator = subprocess.Popen(
+            [sys.executable, "-m", "cervical_tpu_torch.eval_miou",
+             "--gt_dir", os.path.join(tmp, "gt"), "--pred_dir",
+             os.path.join(tmp, "pred"), "--ids", os.path.join(tmp, "ids.txt"),
+             "--miou_out", os.path.join(tmp, "miou")], cwd=HERE, env=env,
+            text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+
+        # train_fusion on it for 2 epochs, then predict_fusion
+        out_dir = os.path.join(tmp, "fusion")
+
+        def run(args, timeout):
+            t = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m"] + args, cwd=HERE,
+                               env=env, capture_output=True, text=True,
+                               timeout=timeout)
+            return r, time.perf_counter() - t
+        r, seconds["train_fusion"] = run(
+            ["cervical_tpu_torch.train_fusion", "--cohort", cohort,
+             "--epochs", "2", "--save_dir", out_dir] + dev_args, 600)
+        losses = []  # train and val loss of each epoch of each fold
+        for name in sorted(os.listdir(out_dir) if r.returncode == 0 else []):
+            if name.endswith("_metrics.txt"):
+                with open(os.path.join(out_dir, name)) as f:
+                    losses += [float(v) for line in f
+                               for v in line.split("\t")[1:3]]
+        check(r.returncode == 0 and len(losses) == 2 * 2 * 5 and
+              all(math.isfinite(v) for v in losses),
+              f"train_fusion exit {r.returncode}; losses {losses}; tail:\n"
+              f"{(r.stdout + r.stderr)[-3000:]}")
+        r2, seconds["predict_fusion"] = run(
+            ["cervical_tpu_torch.predict_fusion", "--cohort", cohort,
+             "--params", os.path.join(out_dir, "best_seed0_fold0.npz"),
+             "--out", os.path.join(tmp, "preds.json")] + dev_args, 300)
+        check(r2.returncode == 0, f"predict_fusion exit {r2.returncode}: "
+              f"{(r2.stdout + r2.stderr)[-3000:]}")
+        with open(os.path.join(tmp, "preds.json")) as f:
+            preds = json.load(f)
+        check(len(preds["classes"]) == n_patients and
+              all(math.isfinite(p) for row in preds["probs"] for p in row),
+              "predict_fusion's report")
+        res["train_fusion_losses"] = [min(losses), max(losses)]
+        res["predict_fusion_accuracy"] = preds.get("accuracy")
+        print(f"train_fusion (5 folds x 2 epochs, {len(losses)} losses, all "
+              f"finite) in {seconds['train_fusion']:.1f} s; predict_fusion "
+              f"in {seconds['predict_fusion']:.1f} s, accuracy "
+              f"{preds.get('accuracy')}")
+
+        text, _ = evaluator.communicate(timeout=300)
+        seconds["eval_miou"] = time.perf_counter() - t_eval
+        with open(os.path.join(tmp, "miou", "confusion_matrix.csv")) as f:
+            rows = [row.split(",")[1:] for row in f.read().splitlines()[1:]]
+        total = sum(int(v) for row in rows for v in row)
+        check(evaluator.returncode == 0 and total == 6 * 96 * 128 and
+              "===> mIoU" in text, f"eval_miou exit {evaluator.returncode}, "
+              f"matrix sum {total}: {text[-2000:]}")
+        print(f"eval_miou dirs mode: the matrix counts {total} pixels")
+    finally:
+        if evaluator is not None and evaluator.poll() is None:
+            evaluator.kill()
+            evaluator.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {**W.LAUNCHES, **MF.LAUNCHES}
+    check(sum(launches.values()) == 0, f"the featurize path launched kernels "
+          f"{launches}")
+    res["seconds"] = seconds
+    print("featurize " + json.dumps(res))
+    return res
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "cervical_tpu_torch")):
         print("chip_smoke.py: the cervical_tpu_torch package is not beside "
@@ -1984,8 +2400,8 @@ def main():
         return out
     records, k4 = timed("kernels", kernel_phase, torch, F, MF, dev,
                         torch.Generator().manual_seed(0))
-    launches = timed("predictor", predictor_phase, torch, MF,
-                     torch.Generator().manual_seed(1))
+    launches, served = timed("predictor", predictor_phase, torch, MF,
+                             torch.Generator().manual_seed(1))
     warp = timed("warp", warp_phase, torch, W, A, dev,
                  torch.Generator().manual_seed(2))
     eager = timed("train", train_phase, torch, W,
@@ -1996,6 +2412,9 @@ def main():
     # augment_batch_kernels(fused=True), its one caller (warp phase)
     path_launches = timed("fit", fit_phase, torch, W, MF)
     timed("fusion", fusion_phase, torch, card)
+    timed("mobilenet", mobilenet_phase, torch,
+          torch.Generator().manual_seed(14), card, served)
+    timed("featurize", featurize_phase, torch, card)
     path_launches["warp_photo_images"] = warp["warp_photo_images"]["launches"]
     print("seconds per phase " + json.dumps(seconds))
 

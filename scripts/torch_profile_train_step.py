@@ -3,9 +3,10 @@
 
     python scripts/torch_profile_train_step.py [--batch 8] [--frozen false] \
         [--steps 5] [--hw 512 512] [--aug_backend pallas] [--aug_only false] \
-        [--trace path.json]
+        [--backbone xception] [--trace path.json]
 
-Runs ``SegTrainer.train_step`` (xception, os16, 5 classes, bf16, Adam,
+Runs ``SegTrainer.train_step`` (``--backbone`` xception or mobilenet, os16,
+5 classes, bf16, Adam,
 focal + dice, seeded random init; ``--aug_backend pallas``, the default
 here, the K1-K3 kernels, or ``einsum``) on one synthetic uint8 batch already
 on the GPU, under ``torch.profiler`` after three warm-up steps, and prints:
@@ -65,6 +66,8 @@ def main(argv=None):
     ap.add_argument("--aug_backend", default="pallas",
                     choices=("pallas", "einsum"))
     ap.add_argument("--aug_only", default="false")
+    ap.add_argument("--backbone", default="xception",
+                    choices=("xception", "mobilenet"))
     ap.add_argument("--trace", default="")
     args = ap.parse_args(argv)
 
@@ -79,7 +82,7 @@ def main(argv=None):
         SegTrainer, _sample_step_aug_params, make_train_aug_fn)
 
     frozen = args.frozen.lower() in ("1", "true", "yes")
-    cfg = SegTrainConfig()
+    cfg = SegTrainConfig(backbone=args.backbone)
     cfg.data.aug_backend = args.aug_backend
     cfg.data.input_shape = tuple(args.hw)
     trainer = SegTrainer(cfg)
@@ -127,7 +130,8 @@ def main(argv=None):
         by_family[family(e.key)] += dev_us / 1e3 / args.steps
     busy_ms = sum(by_name.values())
     card = torch.cuda.get_device_name(0)
-    print(f"{card}; train step ({args.aug_backend} augmentation"
+    print(f"{card}; {args.backbone} train step ({args.aug_backend} "
+          "augmentation"
           f"{', the augmentation alone' if aug_only else ''}), "
           f"batch {b}, {h}x{w}, frozen={frozen}, {args.steps} profiled steps")
     print(f"per step: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
@@ -138,7 +142,8 @@ def main(argv=None):
     print("top kernels by device ms per step:")
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {ms:10.3f}  {name[:110]}")
-    print(json.dumps({"device": card, "aug_backend": args.aug_backend,
+    print(json.dumps({"device": card, "backbone": args.backbone,
+                      "aug_backend": args.aug_backend,
                       "aug_only": args.aug_only, "batch": b, "hw": [h, w],
                       "frozen": frozen, "steps": args.steps,
                       "wall_ms_per_step": wall_ms,

@@ -100,7 +100,8 @@ def test_fold_cache_follows_weights(setup):
         assert model.backbone._folded is None
 
 
-@pytest.mark.parametrize("stride,dilation", [(1, 1), (2, 1), (1, 2), (1, 3)])
+@pytest.mark.parametrize("stride,dilation",
+                         [(1, 1), (2, 1), (1, 2), (1, 3), (1, 4)])
 def test_depthwise_matches_jax(stride, dilation):
     rng = np.random.default_rng(23)
     x = rng.standard_normal((2, 9, 11, 8)).astype(np.float32)
@@ -113,7 +114,16 @@ def test_depthwise_matches_jax(stride, dilation):
 
 
 def test_unported_backbone_and_stride_raise():
-    with pytest.raises(NotImplementedError, match="MobileNetV2"):
-        DeepLab(backbone="mobilenet")
+    """MobileNetV2 builds (320 channels into ASPP, 24 into the shortcut);
+    the fused middle flow is xception-only and output stride 32 is
+    unsupported, as in JAX; an unknown backbone raises."""
+    model = DeepLab(backbone="mobilenet")
+    assert model.aspp.branch1[0].in_channels == 320
+    assert model.shortcut_conv[0].in_channels == 24
+    with pytest.raises(ValueError, match="xception-only"):
+        DeepLab(backbone="mobilenet", fused_middle=True)
+    for backbone in ("xception", "mobilenet"):
+        with pytest.raises(ValueError):
+            DeepLab(backbone=backbone, downsample_factor=32)
     with pytest.raises(ValueError):
-        DeepLab(downsample_factor=32)
+        DeepLab(backbone="resnet")

@@ -133,11 +133,34 @@ def test_imputation_and_filler_of_absent_slots(setup):
     assert np.abs(full - zero["all"]).max() > 1e-6
 
 
+def _program_inputs(ds, b):
+    """The first ``b`` patients as the exported program's inputs, some
+    slots absent and one patient with none present."""
+    present = np.ones((b, len(MODS)), bool)
+    present[::2, 1] = False
+    present[-1] = False
+    return ({m: torch.from_numpy(ds["feats"][m][:b]) for m in MODS},
+            torch.from_numpy(present))
+
+
 def test_unported_export_and_cpu_throughput_raise(setup):
-    _, cfg_p, _, _, jax_npz, tmp = setup
+    """``export_program`` (the counterpart of JAX's ``export_stablehlo``)
+    writes a ``torch.export`` program whose loaded module equals the eager
+    forward to 1e-6 and JAX's ``_forward`` to 1e-5, absent slots
+    included; ``get_throughput`` off the card raises."""
+    cfg_j, cfg_p, ds, params, jax_npz, tmp = setup
     pred = FusionPredictor.from_npz(cfg_p, jax_npz, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pred.export_stablehlo(str(tmp / "x"))
+    path = pred.export_program(str(tmp / "fusion.pt2"), batch_size=3)
+    program = torch.export.load(path).module()
+    feats, present = _program_inputs(ds, 3)
+    with torch.no_grad():
+        got = {k: v.numpy() for k, v in program(feats, present).items()}
+    eager = {k: v.numpy() for k, v in pred._forward(feats, present).items()}
+    assert set(got) == {"all", *MODS}
+    assert max(float(np.abs(got[k] - eager[k]).max()) for k in got) <= 1e-6
+    ref = JPredictor(cfg_j, params)._forward(
+        params, {m: v.numpy() for m, v in feats.items()}, present.numpy())
+    print("exported program vs JAX _forward", _close(ref, got))
     with pytest.raises(RuntimeError, match="card"):
         pred.get_throughput(batch_size=4, iters=1)
 
@@ -167,10 +190,17 @@ def test_predict_fusion_cli(setup):
     np.testing.assert_array_equal(report["classes"], ref["all"].argmax(-1))
     for m in MODS:
         assert len(report[f"classes_{m}"]) == n
-    r = _run(["cervical_tpu_torch.predict_fusion", "--cohort", cohort,
-              "--params", jax_npz, "--in_features", "32", "--hidden", "64",
-              "--export", str(tmp / "x.pt"), "--device", "cpu"], str(tmp))
-    assert r.returncode != 0 and "NotImplementedError" in r.stderr
+    exported = str(tmp / "cli.pt2")
+    r = _run(["cervical_tpu_torch.predict_fusion", "--params", jax_npz,
+              "--in_features", "32", "--hidden", "64", "--export", exported,
+              "--device", "cpu"], str(tmp))
+    assert r.returncode == 0, r.stdout + r.stderr
+    feats, present = _program_inputs(ds, 1)
+    with torch.no_grad():
+        got = torch.export.load(exported).module()(feats, present)
+    ref = JPredictor(cfg_j, params).predict_proba(
+        {m: v.numpy() for m, v in feats.items()}, present.numpy())
+    _close(ref, {k: v.numpy() for k, v in got.items()})
 
 
 def test_predict_fusion_cli_unlabeled_two_modal(setup, tmp_path):

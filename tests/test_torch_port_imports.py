@@ -37,7 +37,7 @@ def test_port_imports_no_jax_or_reference_package():
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 44, out.stdout
+    assert n_modules >= 53, out.stdout
 
 
 def test_port_sources_name_no_reference_package():

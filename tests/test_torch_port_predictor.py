@@ -185,5 +185,18 @@ def test_cli_predicts_on_cpu(state, tmp_path):
         outs.append(np.asarray(Image.open(out)))
     assert outs[0].shape == img.shape
     np.testing.assert_array_equal(outs[0], outs[1])
-    with pytest.raises(NotImplementedError):
-        predict.main(["--export", "m.bin", "--device", "cpu"])
+    # --export writes a loadable torch.export program of the same weights;
+    # it holds them contiguous where the predictor keeps them channels_last,
+    # and the two layouts round differently (1.4e-6 in the probs)
+    exported = tmp_path / "m.pt2"
+    predict.main(["--ckpt", str(tmp_path / "w.pt"), "--export",
+                  str(exported), "--device", "cpu", "--dtype", "float32",
+                  "--data.input_shape", "[64, 64]"])
+    x = torch.from_numpy(np.random.default_rng(47).random(
+        (1, 64, 64, 3), np.float32))
+    cfg = SegTrainConfig(data=SegDataConfig(input_shape=(64, 64)),
+                         dtype="float32")
+    with torch.no_grad():
+        got = torch.export.load(str(exported)).module()(x)
+    want = SegPredictor(cfg, state, device="cpu")._run(x)
+    assert float((got - want).abs().max()) <= 1e-5

@@ -55,9 +55,25 @@ def test_flax_npz_round_trip(state, tmp_path):
 
 
 def test_flax_import_refuses_mobilenet(state):
-    params, stats = to_flax(state)
-    with pytest.raises(NotImplementedError):
-        deeplab_from_flax(params, stats, backbone="mobilenet")
+    """The MobileNetV2 mapping inverts ``convert_deeplab(sd, "mobilenet")``
+    exactly at full width; a tree of one backbone refuses the other's
+    mapping, and an unknown backbone raises."""
+    mb = random_state(DeepLab(num_classes=5, backbone="mobilenet"), seed=32)
+    params, stats = to_flax(mb, "mobilenet")
+    back = deeplab_from_flax(params, stats, "mobilenet")
+    assert set(back) == set(mb)
+    for k, v in mb.items():
+        if v.dtype.is_floating_point:
+            assert torch.equal(back[k], v), k
+    DeepLab(num_classes=5, backbone="mobilenet").load_state_dict(back,
+                                                                 strict=True)
+    with pytest.raises(KeyError):
+        deeplab_from_flax(params, stats, backbone="xception")
+    xp, xs = to_flax(state)
+    with pytest.raises(KeyError):
+        deeplab_from_flax(xp, xs, backbone="mobilenet")
+    with pytest.raises(ValueError):
+        deeplab_from_flax(xp, xs, backbone="resnet")
 
 
 def test_metrics_copy_matches_jax():

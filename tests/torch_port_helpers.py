@@ -7,14 +7,15 @@ import pytest
 import torch
 
 
-def random_state(model, seed):
+def random_state(model, seed, closing="sepconv3.bn2"):
     """A ``state_dict`` for ``model`` with every float tensor drawn from
     ``np.random.default_rng(seed)``: kaiming-scaled kernels, BN scale ~1,
     running var in [0.8, 1.2].  The BN closing each residual branch
-    (``sepconv3.bn2``) scales by ~0.1, so the 20 residual blocks grow
-    activations only ~10x while the logits still depend strongly on every
-    block (a 10% change of the middle flow's pointwise weights moves them
-    by O(1), and the argmax takes several classes)."""
+    (``closing``: Xception's ``sepconv3.bn2``, a ResNet's ``bn3``) scales
+    by ~0.1, so the 20 residual blocks grow activations only ~10x while
+    the logits still depend strongly on every block (a 10% change of the
+    middle flow's pointwise weights moves them by O(1), and the argmax
+    takes several classes)."""
     rng = np.random.default_rng(seed)
     out = {}
     for k, v in model.state_dict().items():
@@ -27,7 +28,7 @@ def random_state(model, seed):
         elif k.endswith("running_mean"):
             a = 0.05 * rng.standard_normal(shape)
         elif v.ndim == 1 and k.endswith(".weight"):  # BN scale
-            loc = 0.1 if "sepconv3.bn2" in k else 1.0
+            loc = 0.1 if closing in k else 1.0
             a = loc + 0.02 * rng.standard_normal(shape)
         elif v.ndim == 1:  # biases
             a = 0.05 * rng.standard_normal(shape)
@@ -38,12 +39,12 @@ def random_state(model, seed):
     return out
 
 
-def to_flax(state):
+def to_flax(state, backbone="xception"):
     """Port ``state_dict`` -> (params, batch_stats) through
     ``cervical_tpu.train.torch_import.convert_deeplab``."""
     from cervical_tpu.train import torch_import as TI
     sd = {k: v.numpy() for k, v in state.items() if v.dtype.is_floating_point}
-    params, stats, missing = TI.convert_deeplab(sd, "xception", strict=True)
+    params, stats, missing = TI.convert_deeplab(sd, backbone, strict=True)
     assert not missing
     return params, stats
 
