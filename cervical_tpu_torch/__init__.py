@@ -62,6 +62,20 @@ The fusion slice (the multimodal lesion-severity classifier):
 
 The fusion path has no hand-written kernel: it is dense products.
 
+The data-preparation path:
+
+* ``cervical_tpu_torch.native`` — the threaded libjpeg/libpng batch
+  loader (``loader.cc``, built with ``g++`` at first use), behind
+  ``data.voc.VOCSegDataset(use_native=True)``; its planar batches go to
+  ``ops.warp.augment_batch_kernels(planar=True)``;
+* ``cervical_tpu_torch.ops.histeq`` — the 5x multimodal augmentation
+  (Y-channel equalization, flips, blur, rotation) batched on the card;
+* ``cervical_tpu_torch.tools`` — labelbox/labelme conversion, splits and
+  the label audit, the offline 8x/5x augmentation; the CLI is ``python -m
+  cervical_tpu_torch.prepare_dataset``;
+* ``cervical_tpu_torch.utils.profiling`` — ``trace`` (a ``torch.profiler``
+  Chrome trace) and ``ThroughputMeter``.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -4,9 +4,10 @@ of ``cervical_tpu/data/voc.py`` (reference:
 ``Segmentation/deeplabv3+/utils/dataloader.py`` and ``train.py:396-399``).
 
 The host only decodes and stages fixed-shape uint8 arrays; all
-augmentation runs batched on the card (``ops/warp.py``).  Decoding uses
-PIL, imported where a file is read (the JAX package's native C++ loader is
-not ported).
+augmentation runs batched on the card (``ops/warp.py``).  A batch is
+decoded by the native threaded loader (``cervical_tpu_torch.native``)
+where its library builds, else image by image with PIL, imported where a
+file is read.
 """
 
 from __future__ import annotations
@@ -39,13 +40,24 @@ def cvt_rgb(img):
 class VOCSegDataset:
     """Decode-and-stage dataset over a VOC2007 layout, every image staged
     at ``stage_hw`` (a plain resize: exact for this dataset's native 512x512
-    images) so each batch has one shape."""
+    images) so each batch has one shape.
+
+    ``use_native``: :meth:`load_batch` decodes with the native loader when
+    its library is available and falls back to PIL, as the JAX package
+    does, when it is not (``native.unavailable_reason()`` says why) or when
+    a batch reports failures.  ``batches`` counts the batches each decoder
+    delivered (``{"native": n, "pil": m}``), so a caller can tell which
+    ran."""
 
     def __init__(self, dataset_path: str, ids: Sequence[str],
-                 stage_hw: Tuple[int, int] = (512, 512)):
+                 stage_hw: Tuple[int, int] = (512, 512),
+                 use_native: bool = True):
         self.dataset_path = dataset_path
         self.ids = list(ids)
         self.stage_hw = stage_hw
+        self.use_native = use_native
+        self.batches = {"native": 0, "pil": 0}
+        self._count_lock = threading.Lock()
         self._check_stage_aspect()
 
     def _check_stage_aspect(self):
@@ -89,12 +101,27 @@ class VOCSegDataset:
             return np.asarray(jpg, np.uint8), np.asarray(png, np.uint8)
 
     def load_batch(self, idxs) -> Tuple[np.ndarray, np.ndarray]:
+        """Decode a whole batch: (N, H, W, 3) and (N, H, W) uint8."""
+        if self.use_native:
+            from cervical_tpu_torch import native
+            if native.available():
+                jpgs, pngs = zip(*(self.paths(int(i)) for i in idxs))
+                imgs, lbls, failures = native.load_batch(
+                    list(jpgs), list(pngs), self.stage_hw)
+                if failures == 0:
+                    self._count("native")
+                    return imgs, lbls
         h, w = self.stage_hw
         imgs = np.empty((len(idxs), h, w, 3), np.uint8)
         lbls = np.empty((len(idxs), h, w), np.uint8)
         for j, i in enumerate(idxs):
             imgs[j], lbls[j] = self.load(int(i))
+        self._count("pil")
         return imgs, lbls
+
+    def _count(self, decoder: str):
+        with self._count_lock:  # BatchLoader's workers decode in threads
+            self.batches[decoder] += 1
 
 
 class ArraySegDataset:

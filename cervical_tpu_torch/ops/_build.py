@@ -46,9 +46,10 @@ def nvcc_path() -> str:
                        "CUDA toolkit is installed (set CUDA_HOME)")
 
 
-def library_path(source: Path) -> Path:
+def library_path(source: Path, flags=NVCC_FLAGS) -> Path:
+    """``_build/<stem>-<hash of the source and the flags>.so``."""
     digest = hashlib.sha256(Path(source).read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+                            + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 

@@ -207,9 +207,11 @@ def _take(img, yi, xi):
     return img[b, yi, xi]
 
 
-def _gather_bilinear(img, ys, xs, fill):
+def _gather_bilinear(img, ys, xs, fill, fused: bool = False):
     """Bilinear sample of (B, H, W, C) at float coords; out of bounds ->
-    ``fill``; edge taps clamp."""
+    ``fill``; edge taps clamp.  ``fused``: the four-term sum as XLA:CPU
+    contracts it when the whole gather is one jitted program (the last
+    three terms fused multiply-adds onto the second)."""
     _, ih, iw, _ = img.shape
     x0 = torch.floor(xs)
     y0 = torch.floor(ys)
@@ -220,8 +222,15 @@ def _gather_bilinear(img, ys, xs, fill):
     def tap(yi, xi):
         return _take(img, yi.clamp(0, ih - 1), xi.clamp(0, iw - 1))
 
-    out = (tap(y0i, x0i) * (1 - fx) * (1 - fy) + tap(y0i, x0i + 1) * fx * (1 - fy)
-           + tap(y0i + 1, x0i) * (1 - fx) * fy + tap(y0i + 1, x0i + 1) * fx * fy)
+    if fused:
+        gx, gy = 1 - fx, 1 - fy
+        out = _fma(tap(y0i + 1, x0i + 1) * fx, fy,
+                   _fma(tap(y0i + 1, x0i) * gx, fy,
+                        _fma(tap(y0i, x0i) * gx, gy,
+                             tap(y0i, x0i + 1) * fx * gy)))
+    else:
+        out = (tap(y0i, x0i) * (1 - fx) * (1 - fy) + tap(y0i, x0i + 1) * fx * (1 - fy)
+               + tap(y0i + 1, x0i) * (1 - fx) * fy + tap(y0i + 1, x0i + 1) * fx * fy)
     inb = _in_bounds(ys, xs, ih, iw)[..., None]
     return torch.where(inb, out, torch.full_like(out, fill))
 

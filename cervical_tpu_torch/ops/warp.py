@@ -571,9 +571,11 @@ def augment_batch_kernels(images, labels, params, dst_hw: Tuple[int, int],
                           letterbox: bool = False, normalized: bool = True,
                           fused: bool = False,
                           blur_capacity: int | None = None,
-                          carry_u8: bool = False):
-    """The counterpart of ``augment_batch_pallas``: (B, H, W, 3) uint8 and
-    (B, H, W) uint8 labels -> (images
+                          carry_u8: bool = False, planar: bool = False):
+    """The counterpart of ``augment_batch_pallas``: (B, H, W, 3) uint8 — or,
+    with ``planar``, (B, 3, H, W) uint8 as the native loader emits it
+    (``native.load_batch(planar=True)``) — and (B, H, W) uint8 labels ->
+    (images
     (B, h, w, 3) bf16, a view of planar storage, in [0, 1] if
     ``normalized`` else [0, 255]; labels (B, h, w) uint8).
 
@@ -586,7 +588,7 @@ def augment_batch_kernels(images, labels, params, dst_hw: Tuple[int, int],
     ``carry_u8`` rounds the warp's output to uint8 before the photometric
     pass.
     """
-    src_hw = tuple(images.shape[1:3])
+    src_hw = tuple(images.shape[2:4] if planar else images.shape[1:3])
     dev = images.device
     wp = make_warp_params(params, src_hw, dst_hw, letterbox)
     # the (B, NPARAMS_FULL) rows in the JAX package's column order
@@ -605,7 +607,8 @@ def augment_batch_kernels(images, labels, params, dst_hw: Tuple[int, int],
         full = full.to(dev)
     wp, gains = full[:, :NPARAMS], full[:, P_GH:P_GV + 1]
     blur = full[:, P_BLUR] > 0
-    x = images.permute(0, 3, 1, 2)  # K1 and K5 read the NHWC batch in place
+    # K1 and K5 read either layout in place, by its strides
+    x = images if planar else images.permute(0, 3, 1, 2)
     s = dst_hw[0]
     lbl = warp_labels(labels, wp, out_size=s)
     if letterbox:

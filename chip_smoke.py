@@ -128,7 +128,29 @@
    folds, every loss finite) and ``predict_fusion`` on its best params;
    beside them ``python -m cervical_tpu_torch.eval_miou`` in dirs mode,
    its matrix summing to the pixel count.  No kernel runs.
-11. Prints the seconds per phase, one ``{"kernels": [...]}`` line (six
+11. Drives the data-preparation path (``prepare`` phase): (a) a synthetic
+   VOC of 64 512² JPEG/PNG pairs decoded by the native loader
+   (``cervical_tpu_torch.native``, built with ``g++`` at first use; its
+   availability printed beside ``g++ --version``, and the phase fails if
+   libjpeg's and libpng's headers are installed but it does not build)
+   against PIL — labels equal, images within 3 counts mean, the planar
+   batch equal to the NHWC one transposed —, both decoders' images/s at
+   batch 16 beside the defaults phase's graph call, and
+   ``augment_batch_kernels(planar=True)`` on the native planar batch (where
+   the library is missing, PIL's made planar on the host) equal to the
+   NHWC call bit for bit, K1-K3 launched once each; (b) ``python
+   -m cervical_tpu_torch.prepare_dataset`` on 12 colour-coded 512² masks
+   (colours to ids equal to the masks' ids, splits 8,1,1, the 8x
+   augmentation, an audit with no warning), then an unfrozen
+   ``run_epoch`` (``aug_backend="pallas"``) over its output read through
+   ``VOCSegDataset(use_native=True)``: every batch decoded natively, K1-K3
+   once per step, losses finite; (d) ``utils.profiling.trace`` around two
+   train steps, the Chrome trace naming K1-K3, and
+   ``ThroughputMeter.summary()``; (c) ``ops.histeq.fivefold_augment`` at
+   (16, 512, 512, 3) on the card against the CPU (each slot's max
+   difference and count printed, held to 1e-3), its images/s, and
+   ``write_multimodal_augmented`` over 32 PNGs: 160 files.
+12. Prints the seconds per phase, one ``{"kernels": [...]}`` line (six
    kernels), then as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, if any check fails, if there is no
@@ -2357,6 +2379,315 @@ def featurize_phase(torch, card, depth=101, n_patients=24, image_size=512,
     return res
 
 
+def codec_headers():
+    """Whether ``g++`` compiles a file that includes libjpeg's and libpng's
+    headers (the native loader's build needs both, and their libraries)."""
+    try:
+        r = subprocess.run(["g++", "-fsyntax-only", "-x", "c++", "-"],
+                           input="#include <cstdio>\n#include <jpeglib.h>\n"
+                           "#include <png.h>\n", capture_output=True,
+                           text=True, timeout=60)
+    except OSError:
+        return False
+    return r.returncode == 0
+
+
+def prepare_phase(torch, W, card, defaults=None, n_pairs=64, size=512,
+                  n_prep=12, n_5x=32, batch=16, device="cuda", timing=True):
+    """The data-preparation path; see the module docstring.  (a) the native
+    loader against PIL, its images/s, its planar batch through K1-K3;
+    (b) the ``prepare_dataset`` CLI and an unfrozen epoch read natively
+    from its output; (c) ``fivefold_augment`` card against CPU, its
+    images/s, ``write_multimodal_augmented``; (d) a ``utils.profiling``
+    trace of two train steps and ``ThroughputMeter``.  ``defaults``: the
+    defaults phase's readings, printed beside the decode rates."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from PIL import Image
+    from cervical_tpu_torch import native
+    from cervical_tpu_torch.config import SegTrainConfig
+    from cervical_tpu_torch.data.voc import (BatchLoader, VOCSegDataset,
+                                             make_synthetic_voc, read_split)
+    from cervical_tpu_torch.ops.augment import sample_augment_params
+    from cervical_tpu_torch.ops.histeq import fivefold_augment
+    from cervical_tpu_torch.tools.offline_aug import write_multimodal_augmented
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+    from cervical_tpu_torch.utils.profiling import ThroughputMeter, trace
+
+    res = {"card": card}
+    seconds = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_prepare_")
+
+    def sync():
+        if device != "cpu":
+            torch.cuda.synchronize()
+    try:
+        # (a) the loader
+        t0 = time.perf_counter()
+        root = make_synthetic_voc(os.path.join(tmp, "voc"),
+                                  num_images=n_pairs, size=size)
+        seconds["write_voc"] = time.perf_counter() - t0
+        ids = sorted(f[:-4] for f in os.listdir(
+            os.path.join(root, "VOC2007", "JPEGImages")))
+        gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                             text=True).stdout.splitlines()[:1] \
+            if shutil.which("g++") else ["g++ not found"]
+        headers = codec_headers()
+        have = native.available()
+        res["native"] = {"available": have, "codec_headers": headers,
+                         "reason": native.unavailable_reason(),
+                         "gxx": gxx[0] if gxx else ""}
+        print(f"native loader: available {have}"
+              + ("" if have else f" ({native.unavailable_reason()})")
+              + f"; codec headers {'found' if headers else 'missing'}; "
+              f"{gxx[0] if gxx else ''}")
+        check(have or not headers, "the codecs' headers are installed but "
+              f"the native loader did not build: "
+              f"{native.unavailable_reason()}")
+        pil = VOCSegDataset(root, ids, (size, size), use_native=False)
+        nat = VOCSegDataset(root, ids, (size, size), use_native=True)
+        every = np.arange(len(ids))
+        ref_i, ref_l = pil.load_batch(every)
+        if have:
+            jpgs, pngs = zip(*(nat.paths(i) for i in every))
+            imgs, lbls, fails = native.load_batch(list(jpgs), list(pngs),
+                                                  (size, size))
+            pimgs, plbls, pfails = native.load_batch(
+                list(jpgs), list(pngs), (size, size), planar=True)
+            mad = np.abs(imgs.astype(np.int16) - ref_i).mean(axis=(1, 2, 3))
+            check(fails == 0 and pfails == 0 and np.array_equal(lbls, ref_l)
+                  and np.array_equal(plbls, ref_l) and bool((mad < 3).all())
+                  and np.array_equal(pimgs, imgs.transpose(0, 3, 1, 2)),
+                  f"native against PIL: failures {fails}/{pfails}, labels "
+                  f"equal {np.array_equal(lbls, ref_l)}, image mean abs "
+                  f"diff max {mad.max()}")
+            res["native"]["max_image_mean_abs_diff"] = float(mad.max())
+            print(f"native decode of {len(ids)} {size}² pairs against PIL: "
+                  f"labels equal, images mean |diff| <= {mad.max():.4f} "
+                  f"counts, planar = NHWC transposed")
+
+        def rate(fn, reps=2):
+            fn()  # first pass: sidecars written, files in the page cache
+            t = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            return reps * len(ids) / (time.perf_counter() - t)
+        chunks = [every[i:i + batch] for i in range(0, len(ids), batch)]
+        decode = {"batch": batch, "threads": native.default_threads(),
+                  "pil_images_per_s": rate(lambda: [pil.load_batch(c)
+                                                    for c in chunks])}
+        if have:
+            decode["native_images_per_s"] = rate(
+                lambda: [nat.load_batch(c) for c in chunks])
+            decode["native_loader_4_workers_images_per_s"] = rate(
+                lambda: list(BatchLoader(nat, batch, shuffle=False)))
+        decode["pil_loader_4_workers_images_per_s"] = rate(
+            lambda: list(BatchLoader(pil, batch, shuffle=False)))
+        if defaults and "graph_call" in defaults:
+            decode["defaults_graph_call_images_per_s"] = \
+                defaults["graph_call"]["images_per_s"]
+        res["decode"] = decode
+        print(f"decode at batch {batch}, {size}²: " + ", ".join(
+            f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in decode.items()) + f" ({card})")
+
+        # the planar batch as the native loader emits it (without the
+        # library: PIL's batch made planar on the host)
+        src = "native" if have else "PIL, transposed on the host"
+        if not have:
+            imgs, lbls = ref_i, ref_l
+            pimgs = np.ascontiguousarray(imgs.transpose(0, 3, 1, 2))
+        x = torch.from_numpy(pimgs[:batch]).to(device)
+        lab = torch.from_numpy(lbls[:batch]).to(device)
+        p = sample_augment_params(torch.Generator().manual_seed(5), batch)
+        W.reset_launches()
+        gi, gl = W.augment_batch_kernels(x, lab, p, (size, size),
+                                         planar=True)
+        sync()
+        planar_launches = dict(W.LAUNCHES)
+        ri, rl = W.augment_batch_kernels(
+            torch.from_numpy(imgs[:batch]).to(device), lab, p, (size, size))
+        check(torch.equal(gi, ri) and torch.equal(gl, rl),
+              "augment_batch_kernels(planar=True) differs from the NHWC call")
+        if device != "cpu":
+            check(all(planar_launches[k] == 1 for k in TRAIN_KERNELS)
+                  and planar_launches["warp_photo_images"] == 0,
+                  f"the planar call launched {planar_launches}")
+        res["planar"] = {"source": src, "launches": planar_launches}
+        print(f"augment_batch_kernels(planar=True) on the {src} planar "
+              f"batch = the NHWC call bit for bit; launches "
+              f"{planar_launches}")
+
+        # (b) dataset preparation: colour masks -> ids, splits, 8x, audit
+        t0 = time.perf_counter()
+        src = make_synthetic_voc(os.path.join(tmp, "prep"), num_images=n_prep,
+                                 size=size)
+        seg = os.path.join(src, "VOC2007", "SegmentationClass")
+        colors = os.path.join(tmp, "colors")
+        os.makedirs(colors)
+        palette = np.array([[0, 0, 0], [255, 255, 0], [255, 0, 0],
+                            [0, 255, 0], [0, 0, 255]], np.uint8)
+        gray = {}
+        for name in sorted(os.listdir(seg)):
+            gray[name] = np.asarray(Image.open(os.path.join(seg, name)))
+            Image.fromarray(palette[gray[name]]).save(
+                os.path.join(colors, name))
+        shutil.rmtree(seg)
+        shutil.rmtree(os.path.join(src, "VOC2007", "ImageSets"))
+        aug = os.path.join(tmp, "prep_aug")
+        r = subprocess.run(
+            [sys.executable, "-m", "cervical_tpu_torch.prepare_dataset",
+             "--colors_dir", colors, "--gray_dir", seg, "--split_root", src,
+             "--ratios", "8,1,1", "--augment_root", src, "--augment_out", aug,
+             "--audit", aug], cwd=HERE, env=dict(os.environ, PYTHONPATH=HERE),
+            capture_output=True, text=True, timeout=600)
+        seconds["prepare_dataset"] = time.perf_counter() - t0
+        out = r.stdout + r.stderr
+        check(r.returncode == 0 and "WARNING" not in out,
+              f"prepare_dataset exit {r.returncode}:\n{out[-3000:]}")
+        ids_back = {n: np.asarray(Image.open(os.path.join(seg, n)))
+                    for n in gray}
+        check(all(np.array_equal(ids_back[n], g) for n, g in gray.items()),
+              "the class-id masks differ from the colours' ids")
+        n_tv = len(read_split(src, "train")) + len(read_split(src, "val"))
+        a_train, a_val = read_split(aug, "train"), read_split(aug, "val")
+        on_disk = [os.path.exists(os.path.join(aug, "VOC2007", d, i + e))
+                   for i in a_train + a_val
+                   for d, e in (("JPEGImages", ".jpg"),
+                                ("SegmentationClass", ".png"))]
+        check(len(a_train) + len(a_val) == 8 * n_tv and all(on_disk),
+              f"augmented layout: {len(a_train)} + {len(a_val)} ids for "
+              f"{n_tv} train+val ids")
+        hist = {}
+        for i in a_train + a_val:
+            m = np.asarray(Image.open(os.path.join(
+                aug, "VOC2007", "SegmentationClass", i + ".png")))
+            for v in np.unique(m).tolist():
+                hist[v] = hist.get(v, 0) + 1
+        check(set(hist) <= set(range(5)), f"augmented class ids {hist}")
+        res["prepare_dataset"] = {"seconds": seconds["prepare_dataset"],
+                                  "train_val_ids": n_tv,
+                                  "augmented": len(a_train) + len(a_val)}
+        print(f"prepare_dataset CLI ({n_prep} colour masks -> ids, splits "
+              f"8,1,1, 8x of {n_tv} train+val ids, audit): "
+              f"{seconds['prepare_dataset']:.1f} s ({card}), no warning; "
+              + " | ".join(line for line in out.splitlines()
+                           if line.startswith(("splits", "augmented"))))
+
+        cfg = SegTrainConfig()
+        cfg.data.aug_backend = "pallas"
+        cfg.data.input_shape = (size, size)
+        train = VOCSegDataset(aug, a_train, (size, size), use_native=True)
+        val = VOCSegDataset(aug, a_val, (size, size), use_native=True)
+        bs = cfg.unfreeze_batch_size
+        loader = BatchLoader(train, bs, seed=5)
+        trainer = SegTrainer(cfg, device=device)
+        lr = trainer.lr_schedule(bs, cfg.unfreeze_epoch)(0)
+        W.reset_launches()
+        t0 = time.perf_counter()
+        ep = trainer.run_epoch(loader, BatchLoader(val, cfg.eval_batch_size,
+                                                   shuffle=False,
+                                                   drop_last=False),
+                               0, False, lr)
+        sync()
+        seconds["epoch"] = time.perf_counter() - t0
+        epoch_launches = dict(W.LAUNCHES)
+        steps = len(loader)
+        check(math.isfinite(ep.train_loss) and math.isfinite(ep.val_loss),
+              f"non-finite epoch losses {ep}")
+        if device != "cpu":
+            check(all(epoch_launches[k] == steps for k in TRAIN_KERNELS),
+                  f"{steps} steps launched {epoch_launches}")
+        if have:
+            check(train.batches == {"native": steps, "pil": 0} and
+                  val.batches["pil"] == 0,
+                  f"decoders: train {train.batches}, val {val.batches}")
+        res["epoch"] = {"steps": steps, "seconds": seconds["epoch"],
+                        "train_loss": ep.train_loss, "val_loss": ep.val_loss,
+                        "train_batches": dict(train.batches),
+                        "val_batches": dict(val.batches),
+                        "launches": epoch_launches}
+        print(f"unfrozen epoch on the augmented VOC ({steps} steps, batch "
+              f"{bs}, pallas): {seconds['epoch']:.2f} s ({card}), loss "
+              f"{ep.train_loss:.5f} val {ep.val_loss:.5f}; decoders train "
+              f"{train.batches} val {val.batches}; launches {epoch_launches}")
+
+        # (d) profiling: a trace of two train steps, the throughput meter
+        xb, lb = train.load_batch(np.arange(bs))
+        xb, lb = torch.from_numpy(xb).to(device), torch.from_numpy(lb).to(
+            device)
+        meter = ThroughputMeter()
+        meter.step(0)
+        with trace(os.path.join(tmp, "trace")) as tr:
+            for _ in range(2):
+                m = trainer.train_step(xb, lb, False, lr)
+                sync()
+                meter.step(bs)
+        with open(tr.path) as f:
+            text = f.read()
+        named = {k: k in text for k in TRAIN_KERNELS}
+        check(math.isfinite(float(m["loss"])), "non-finite traced step")
+        if device != "cpu":
+            check(all(named.values()), f"the trace names {named}")
+        res["trace"] = {"mib": os.path.getsize(tr.path) / 2 ** 20,
+                        "names": named, "meter": meter.summary()}
+        print(f"profiling.trace of 2 train steps: {res['trace']['mib']:.2f} "
+              f"MiB Chrome trace naming {named}; ThroughputMeter "
+              f"{json.dumps(meter.summary())} ({card})")
+        del trainer
+
+        # (c) the 5x multimodal augmentation, card against CPU
+        rng = np.random.default_rng(6)
+        yy, xx = np.mgrid[:size, :size]
+        base = np.stack([xx, yy, (xx + yy) // 2], -1) * 255 // (2 * size)
+        imgs5 = np.clip(base[None] + rng.integers(0, 128, (batch, 1, 1, 3))
+                        + rng.integers(-12, 12, (batch, size, size, 3)),
+                        0, 255).astype(np.uint8)
+        angles = rng.integers(1, 46, batch).astype(np.float32)
+        host = fivefold_augment(torch.from_numpy(imgs5).float(),
+                                torch.from_numpy(angles))
+        x5 = torch.from_numpy(imgs5).to(device).float()
+        on_card = fivefold_augment(x5, torch.from_numpy(angles)).cpu()
+        slots = ("equalized", "h-flip", "v-flip", "blur", "rotate")
+        diff = {}
+        for k, name in enumerate(slots):
+            d = (on_card[k] - host[k]).abs()
+            diff[name] = {"max_abs": float(d.max()),
+                          "differing": int((d > 0).sum())}
+        check(all(v["max_abs"] <= 1e-3 for v in diff.values()),
+              f"fivefold_augment card against CPU: {diff}")
+        res["fivefold_card_vs_cpu"] = diff
+        print(f"fivefold_augment {tuple(imgs5.shape)} card against CPU "
+              f"(of {on_card[0].numel()} values a slot): {json.dumps(diff)}")
+        if timing:
+            ms = cuda_ms(torch, lambda: fivefold_augment(
+                x5, torch.from_numpy(angles)), 5, queued=False)
+            res["fivefold_ms"] = ms
+            res["fivefold_images_per_s"] = batch * 1e3 / ms
+            print(f"fivefold_augment at batch {batch}, {size}²: {ms:.3f} ms "
+                  f"= {batch * 1e3 / ms:.1f} images/s ({card})")
+        mm = os.path.join(tmp, "mm")
+        os.makedirs(mm)
+        for i in range(n_5x):
+            Image.fromarray(imgs5[i % batch]).save(
+                os.path.join(mm, f"p{i:03d}.png"), compress_level=1)
+        t0 = time.perf_counter()
+        written = write_multimodal_augmented(mm, os.path.join(tmp, "mm5"),
+                                             batch=batch, device=device)
+        seconds["write_multimodal"] = time.perf_counter() - t0
+        check(len(written) == 5 * n_5x and
+              len(os.listdir(os.path.join(tmp, "mm5"))) == 5 * n_5x,
+              f"write_multimodal_augmented wrote {len(written)} files")
+        print(f"write_multimodal_augmented: {n_5x} PNGs -> {len(written)} "
+              f"files in {seconds['write_multimodal']:.1f} s ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    res["seconds"] = seconds
+    print("prepare " + json.dumps(res))
+    return res
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "cervical_tpu_torch")):
         print("chip_smoke.py: the cervical_tpu_torch package is not beside "
@@ -2406,8 +2737,8 @@ def main():
                  torch.Generator().manual_seed(2))
     eager = timed("train", train_phase, torch, W,
                   torch.Generator().manual_seed(3))
-    timed("defaults", defaults_phase, torch, W,
-          torch.Generator().manual_seed(4), card, eager)
+    defaults = timed("defaults", defaults_phase, torch, W,
+                     torch.Generator().manual_seed(4), card, eager)
     # the slice's main path: K1-K3 as launched by fit; K5 by
     # augment_batch_kernels(fused=True), its one caller (warp phase)
     path_launches = timed("fit", fit_phase, torch, W, MF)
@@ -2415,6 +2746,7 @@ def main():
     timed("mobilenet", mobilenet_phase, torch,
           torch.Generator().manual_seed(14), card, served)
     timed("featurize", featurize_phase, torch, card)
+    prepare = timed("prepare", prepare_phase, torch, W, card, defaults)
     path_launches["warp_photo_images"] = warp["warp_photo_images"]["launches"]
     print("seconds per phase " + json.dumps(seconds))
 
@@ -2441,6 +2773,10 @@ def main():
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": None,
             "library": NO_LIBRARY, "timed_shape": r["timed"],
+            **({"launches_prepare": {
+                "planar_call": prepare["planar"]["launches"][name],
+                "epoch": prepare["epoch"]["launches"][name]}}
+               if name in TRAIN_KERNELS else {}),
             **{k: r[k] for k in ("ms_none_rotated", "ms_all_rotated",
                                  "ms_blur_all", "ms_blur_none", "differing",
                                  "ms_none", "ms_all", "k1_k3_ms",

@@ -466,6 +466,31 @@ def test_augment_batch_kernels_on_card(cuda_device):
         assert bool((err <= 2.0 ** -8 * ri.float().abs() + 1e-7).all())
 
 
+@pytest.mark.parametrize("src_hw,s", [((64, 64), 64), ((40, 64), 64),
+                                      ((512, 512), 512)])
+@pytest.mark.parametrize("kw", [{}, {"carry_u8": True}, {"fused": True},
+                                {"letterbox": True}])
+def test_augment_batch_kernels_planar_equals_nhwc(cuda_device, src_hw, s,
+                                                  kw):
+    """``planar=True`` on the (B, 3, H, W) batch the native loader emits
+    equals the NHWC call on the same pixels bit for bit, kernels on both
+    sides, with the same launches."""
+    from cervical_tpu_torch.ops import warp as W
+    p, _, imgs, lbls = _warp_case(4, 8, src_hw, s, _MIXED)
+    nhwc = imgs.to(cuda_device)
+    planar = nhwc.permute(0, 3, 1, 2).contiguous()
+    lbls = lbls.to(cuda_device)
+    W.reset_launches()
+    gi, gl = W.augment_batch_kernels(planar, lbls, p, (s, s), planar=True,
+                                     **kw)
+    launches = dict(W.LAUNCHES)
+    W.reset_launches()
+    ri, rl = W.augment_batch_kernels(nhwc, lbls, p, (s, s), **kw)
+    assert launches == W.LAUNCHES
+    assert launches["warp_labels"] == 1
+    assert torch.equal(gi, ri) and torch.equal(gl, rl)
+
+
 def test_trainer_epoch_on_card_matches_cpu_losses(cuda_device):
     """SegTrainer defaults to CUDA; at 64², f32, one unfrozen epoch of 2
     steps launches K1-K3 once per step, and with dropout off (the CPU and

@@ -37,7 +37,7 @@ def test_port_imports_no_jax_or_reference_package():
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 53, out.stdout
+    assert n_modules >= 62, out.stdout
 
 
 def test_port_sources_name_no_reference_package():
@@ -152,3 +152,24 @@ def test_chip_smoke_refuses_without_card_or_package(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0, out.stdout
         assert '"ok": true' not in out.stdout
+
+
+def test_data_preparation_modules_import_alone():
+    """The data-preparation slice imports without JAX, the native loader
+    builds nothing at import, and the 5x augmentation defaults to CUDA."""
+    code = (
+        "import sys, inspect\n"
+        "import cervical_tpu_torch.native as N, cervical_tpu_torch.ops.histeq,"
+        " cervical_tpu_torch.tools.labelbox, cervical_tpu_torch.tools.labelme,"
+        " cervical_tpu_torch.tools.voc_annotation,"
+        " cervical_tpu_torch.tools.offline_aug as OA,"
+        " cervical_tpu_torch.prepare_dataset, cervical_tpu_torch.utils.profiling\n"
+        "assert N._lib is None and N._unavailable_reason is None\n"
+        "for fn in (OA.augment_multimodal_5x, OA.write_multimodal_augmented):\n"
+        "    assert inspect.signature(fn).parameters['device'].default == 'cuda'\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr
