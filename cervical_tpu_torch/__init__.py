@@ -76,6 +76,17 @@ The data-preparation path:
 * ``cervical_tpu_torch.utils.profiling`` — ``trace`` (a ``torch.profiler``
   Chrome trace) and ``ThroughputMeter``.
 
+The parallel layouts (``cervical_tpu_torch.parallel``), one process per
+device over ``torch.distributed``:
+
+* ``parallel.mesh`` — the process group (the CLIs' ``--coordinator`` /
+  ``--num_processes`` / ``--process_id`` or ``--multihost true`` under
+  torchrun), the ('data', 'model') ``DeviceMesh``, each rank's rows, and
+  the global-batch sums that ``SegTrainer(mesh=...)`` and
+  ``FusionTrainer(mesh=...)`` train with;
+* ``parallel.tp`` — the fusion model split over the ``model`` axis;
+* ``parallel.pipeline`` — the GPipe pipeline of the Xception middle flow.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

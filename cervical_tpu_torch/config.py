@@ -93,7 +93,8 @@ class SegTrainConfig:
     # run the eval step's forward with the fused middle-flow kernels (K4,
     # ``ops/middle_flow.py``; xception only); the train step never does
     fused_middle_eval: bool = False
-    # JAX device-mesh size; no effect in the port, which runs on one card
+    # the data axis's size (parallel.make_mesh): None = the process group's
+    # world; set, it must equal the world (1 without a process group)
     num_devices: Optional[int] = None
     eval_batch_size: int = 8
     # steps dispatched ahead of the host reading their metrics: the epoch
@@ -153,7 +154,8 @@ class FusionTrainConfig:
     start_seed: int = 0
     repeat_num: int = 1
     save_dir: str = "logs_fusion"
-    # float32 only in the port so far; "bfloat16" raises (ROADMAP §1)
+    # compute dtype, "float32" or "bfloat16" (flax's rule: params, Adam and
+    # the loss stay f32)
     dtype: str = "float32"
 
     def arity_defaults(self, explicit=()):

@@ -1,5 +1,5 @@
 """Device-resident dataset: the whole train or val set on the card — port of
-``cervical_tpu/data/resident.py`` for one card.
+``cervical_tpu/data/resident.py``.
 
 The reference set is small for an 80 GB card (6,720 x 512² x 3 uint8 is 5.3
 GB), so the resident epoch uploads it once and the trainer's K-step calls
@@ -9,6 +9,11 @@ tensor and (N, H, W) labels.  A call reads batch i as the rows ``[i*B,
 host-permuted index.  The batch size is metadata, so the freeze -> unfreeze
 rechunk costs nothing.  Eval sets are repeat-padded to whole batches and
 carry (N,) 0/1 weights, the contract of ``pipeline.host_local_batches``.
+
+Under a data-parallel mesh every rank holds the whole set on its device,
+shuffles it with the shared seeded streams, and its K-step calls read only
+its rows of each global batch (``SegTrainer._resident_train``): the rows
+the JAX package's ``_flat_sharding`` gives each device of the data axis.
 """
 
 from __future__ import annotations

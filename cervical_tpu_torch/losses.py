@@ -7,6 +7,14 @@ Logits are NHWC ``(B, H, W, C)`` and labels ``(B, H, W)`` integers, as in
 JAX; the ignore id is ``num_classes`` (the VOC white border).  Optional
 ``sample_weights`` (B,) make weight-0 rows (padding of a ragged eval batch)
 count exactly as if absent.
+
+Given a data axis of more than one rank (``data``, a ``parallel.mesh.
+Axis``) every batch-wide sum behind a ratio — the CE or focal numerator
+and denominator, dice's and the f-score's ``tp``/``fp``/``fn``, the fusion
+losses' weighted means — is summed over the ranks first (``parallel.mesh.
+global_sums``, with autograd), so each rank's loss is the global batch's.
+Dice is a ratio of batch sums: a mean of per-rank dice would not be the
+global dice.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from cervical_tpu_torch.ops.image import _interp_tensor
+from cervical_tpu_torch.parallel.mesh import global_sums
 
 
 def _flat_ce_terms(logits, labels, class_weights, num_classes):
@@ -118,7 +127,8 @@ def f_score(logits, one_hot_labels, beta=1.0, smooth=1e-5, threshold=0.5,
 def seg_loss_bundle(logits, labels, class_weights=None, num_classes=None, *,
                     focal=True, alpha=0.5, gamma=2.0, dice=True, beta=1.0,
                     smooth=1e-5, threshold=0.5, sample_weights=None,
-                    resize_to=None, align_corners=True, return_preds=False):
+                    resize_to=None, align_corners=True, return_preds=False,
+                    data=None):
     """(focal-or-CE [+ dice], f_score) in class-major layout: the
     composition of :func:`focal_loss` / :func:`cross_entropy_loss`,
     :func:`dice_loss` and :func:`f_score` with one shared softmax and
@@ -128,7 +138,8 @@ def seg_loss_bundle(logits, labels, class_weights=None, num_classes=None, *,
     (``align_corners=True``) done here, in class-major layout, on the
     quarter-resolution logits of ``DeepLab(x, resize_logits=False)``.
     Returns ``(total, main, f_score)`` (``total = main [+ dice]``), and the
-    (B, H, W) int64 argmax with ``return_preds``.
+    (B, H, W) int64 argmax with ``return_preds``.  ``data``: the batch sums
+    span that data axis's ranks (:func:`global_sums`).
     """
     if num_classes is None:
         num_classes = logits.shape[-1]
@@ -169,35 +180,32 @@ def seg_loss_bundle(logits, labels, class_weights=None, num_classes=None, *,
                              device=lt.device)[:, None]       # (B, 1)
     if focal:
         f = (1.0 - torch.exp(-wnll)) ** gamma * alpha * wnll
-        main = torch.mean(f) if rw is None else \
-            torch.sum(f * rw) / torch.clamp(torch.sum(rw) * n, min=1e-12)
+        num = torch.sum(f) if rw is None else torch.sum(f * rw)
+        den = (torch.full((), float(f.numel()), device=f.device)
+               if rw is None else torch.sum(rw) * n)
     elif rw is None:
-        main = torch.sum(wnll) / torch.clamp(torch.sum(wy), min=1e-12)
+        num, den = torch.sum(wnll), torch.sum(wy)
     else:
-        main = torch.sum(wnll * rw) / torch.clamp(torch.sum(wy * rw),
-                                                  min=1e-12)
+        num, den = torch.sum(wnll * rw), torch.sum(wy * rw)
 
     probs_raw = torch.softmax(lt, dim=0)                      # (C, B, HW)
     tgt = eqf * valid[None].to(torch.float32)   # == one_hot[..., :nc]
     probs = probs_raw
-    if rw is not None:
-        probs, tgt = probs * rw[None], tgt * rw[None]
-
-    total = main
-    if dice:
-        tp = torch.sum(tgt * probs, dim=(1, 2))
-        fp = torch.sum(probs, dim=(1, 2)) - tp
-        fn = torch.sum(tgt, dim=(1, 2)) - tp
-        total = total + (1.0 - torch.mean(_score(tp, fp, fn, beta, smooth)))
-
     # f_score thresholds the raw probabilities, then applies row weights
     pb = (probs_raw > threshold).to(torch.float32)
     if rw is not None:
-        pb = pb * rw[None]
-    tp2 = torch.sum(tgt * pb, dim=(1, 2))
-    fp2 = torch.sum(pb, dim=(1, 2)) - tp2
-    fn2 = torch.sum(tgt, dim=(1, 2)) - tp2
-    fs = torch.mean(_score(tp2, fp2, fn2, beta, smooth))
+        probs, tgt, pb = probs * rw[None], tgt * rw[None], pb * rw[None]
+    tp = torch.sum(tgt * probs, dim=(1, 2)) if dice else probs.new_zeros(nc)
+    sp = torch.sum(probs, dim=(1, 2)) if dice else probs.new_zeros(nc)
+    num, den, tp, sp, st, tp2, spb = global_sums(
+        data, num, den, tp, sp, torch.sum(tgt, dim=(1, 2)),
+        torch.sum(tgt * pb, dim=(1, 2)), torch.sum(pb, dim=(1, 2)))
+    main = num / torch.clamp(den, min=1e-12)
+    total = main
+    if dice:
+        total = total + (1.0 - torch.mean(_score(tp, sp - tp, st - tp, beta,
+                                                 smooth)))
+    fs = torch.mean(_score(tp2, spb - tp2, st - tp2, beta, smooth))
     if return_preds:
         preds = torch.argmax(lt, dim=0).reshape((b,) + out_hw)
         return total, main, fs, preds
@@ -208,48 +216,51 @@ def seg_loss_bundle(logits, labels, class_weights=None, num_classes=None, *,
 # Fusion classifier (my_train(full).py:202,253,318-341)
 # ---------------------------------------------------------------------------
 
-def softmax_cross_entropy(logits, labels, weights=None):
+def softmax_cross_entropy(logits, labels, weights=None, data=None):
     """Mean CE over a batch of class logits (``nn.CrossEntropyLoss()``,
     my_train(full).py:202,318-322).  ``weights``: optional (B,) per-sample
     weights, a weighted mean over nonzero-weight rows (weight-0 rows pad a
-    ragged micro-batch to the full shape)."""
+    ragged micro-batch to the full shape).  ``data``: the mean spans that
+    data axis's ranks."""
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     eq = (labels.long()[..., None] == torch.arange(
         logp.shape[-1], device=logp.device)).to(torch.float32)
     nll = -torch.sum(logp * eq, dim=-1)
-    if weights is None:
-        return torch.mean(nll)
-    w = weights.to(torch.float32)
-    return torch.sum(nll * w) / torch.clamp(torch.sum(w), min=1.0)
+    w = (torch.ones_like(nll) if weights is None
+         else weights.to(torch.float32))
+    num, den = global_sums(data, torch.sum(nll * w), torch.sum(w))
+    return num / torch.clamp(den, min=1.0)
 
 
-def masked_mae_mse(mae_out, mae_labels, token_mask):
+def masked_mae_mse(mae_out, mae_labels, token_mask, data=None):
     """MSE between reconstructed and target modality tokens over the masked
     slots (``mes_loss_of_mae(fea_dict['mae_out'][mask[0]], ...)``,
     my_train(full).py:253): a mean over the masked ``(num_masked, D)``
-    elements.  ``token_mask`` (..., T) bool."""
+    elements.  ``token_mask`` (..., T) bool; ``data``: the mean spans that
+    data axis's ranks."""
     mae_out = mae_out.to(torch.float32)
     mae_labels = mae_labels.to(torch.float32)
     m = token_mask[..., None].to(torch.float32)
-    se = torch.sum((mae_out - mae_labels) ** 2 * m)
-    count = torch.clamp(torch.sum(m) * mae_out.shape[-1], min=1.0)
-    return se / count
+    se, count = global_sums(data, torch.sum((mae_out - mae_labels) ** 2 * m),
+                              torch.sum(m) * mae_out.shape[-1])
+    return se / torch.clamp(count, min=1.0)
 
 
 def fusion_multihead_loss(logits_dict, labels, head_weights=None,
                           mae_mse=None, mse_factor=5.0, num_micro_batches=1,
-                          sample_weights=None):
+                          sample_weights=None, data=None):
     """Weighted multi-head CE sum + the MAE-MSE auxiliary term
     (my_train(full).py:325-341): fused head 1.0, image heads 0.3, cli 0.2;
     ``mae_mse`` (already scaled by ``mse_loss_of_mae_factor``) divided by
-    ``num_micro_batches`` and by ``mse_factor``.  Returns (total, parts)."""
+    ``num_micro_batches`` and by ``mse_factor``.  Returns (total, parts).
+    ``data``: the means span that data axis's ranks."""
     default_w = {"all": 1.0, "imgN": 0.3, "imgA": 0.3, "imgL": 0.3, "cli": 0.2}
     if head_weights:
         default_w.update(head_weights)
     total = 0.0
     parts = {}
     for name, logits in logits_dict.items():
-        ce = softmax_cross_entropy(logits, labels, sample_weights)
+        ce = softmax_cross_entropy(logits, labels, sample_weights, data)
         parts[name] = ce
         total = total + default_w[name] * ce
     if mae_mse is not None:

@@ -33,8 +33,9 @@ import torch.nn as nn
 from cervical_tpu_torch.models.layers import (DropoutMasks,
                                               GatedAttentionPool, GraphNorm,
                                               KeyedDropout, MixerBlock,
-                                              dropout_key, init_linear,
-                                              linear, set_compute_dtype)
+                                              data_rows, dropout_key,
+                                              init_linear, linear,
+                                              set_compute_dtype)
 from cervical_tpu_torch.models.mae import TokenMAE
 from cervical_tpu_torch.ops import graph as graph_ops
 
@@ -94,7 +95,12 @@ class FusionMAE(nn.Module):
     same bits.  Returns a dict:
     ``logits`` (per-head dict with "all"), ``one_x``, ``multi_x``, ``fea``,
     ``mae_out`` (None for one modality), ``mae_labels``, ``att1``, ``att2``.
+
+    ``data_axis`` (``parallel.mesh.set_data_axis``, which hands it to the
+    dropouts too): this rank's input is its rows of the global batch.
     """
+
+    data_axis = None  # parallel.mesh.Axis
 
     def __init__(self, modalities: Tuple[str, ...] = ALL_MODALITIES,
                  in_features: int = 1024, hidden: int = 512,
@@ -136,7 +142,7 @@ class FusionMAE(nn.Module):
                           if isinstance(m, KeyedDropout)]
         for i, m in enumerate(self._dropouts):
             m.layer = i
-        self._masks = {}  # DropoutMasks per (device, input shapes, rates)
+        self._masks = {}  # DropoutMasks per (device, shapes, rates, rows)
         set_compute_dtype(self, dtype)
 
     @torch.no_grad()
@@ -165,7 +171,8 @@ class FusionMAE(nn.Module):
         x0 = node_feats[self.modalities[0]]
         sig = (x0.device, tuple(tuple(node_feats[m].shape)
                                 for m in self.modalities),
-               tuple(m.p for m in self._dropouts))
+               tuple(m.p for m in self._dropouts),
+               data_rows(self.data_axis))
         masks, seen = self._masks.get(sig), None
         if masks is None:
             seen = []

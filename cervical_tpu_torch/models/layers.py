@@ -39,7 +39,13 @@ class Dropout(nn.Dropout):
     """``nn.Dropout`` drawing its masks from its own generator, seeded with
     ``seed`` on the device of its first train-mode input, so a seeded run
     repeats and a CUDA graph can register it.  (JAX's dropout bits differ
-    anyway: no parity constraint.)"""
+    anyway: no parity constraint.)  Given a data axis (``data_axis``, set by
+    ``parallel.mesh.set_data_axis``) each rank draws the global batch's mask
+    from the same stream and keeps its own rows, so ranks of one step draw
+    different masks and ``n`` ranks equal one process on the global
+    batch."""
+
+    data_axis = None  # parallel.mesh.Axis
 
     def __init__(self, p: float, seed: int = 0):
         super().__init__(p)
@@ -58,10 +64,23 @@ class Dropout(nn.Dropout):
     def forward(self, x):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p,
-                                              generator=self.generator(
-                                                  x.device))
+        r, ranks = data_rows(self.data_axis)
+        b = x.shape[0]
+        # the global batch's mask, laid out as x (rows are outermost)
+        fmt = (torch.channels_last if x.dim() == 4 and not x.is_contiguous()
+               and x.is_contiguous(memory_format=torch.channels_last)
+               else torch.contiguous_format)
+        keep = torch.empty((b * ranks,) + tuple(x.shape[1:]), dtype=x.dtype,
+                           device=x.device, memory_format=fmt)
+        keep.bernoulli_(1.0 - self.p, generator=self.generator(x.device))
+        keep = keep[r * b:(r + 1) * b]
         return x * keep * (1.0 / (1.0 - self.p))
+
+
+def data_rows(data) -> tuple:
+    """(this rank's index, the rank count) of a data axis, (0, 1) without
+    one."""
+    return (0, 1) if data is None else (data.rank, data.size)
 
 
 _M32 = 0xFFFFFFFF
@@ -101,16 +120,43 @@ class KeyedDropout(nn.Dropout):
     For a train-mode forward the model sets either ``keep``, this layer's
     slice of the masks it drew for all its dropouts at once
     (:class:`DropoutMasks`), or ``key`` alone: the layer then hashes its
-    own mask and, if ``seen`` is a list, appends ``(self, numel)`` to it."""
+    own mask and, if ``seen`` is a list, appends ``(self, shape)`` to it.
+
+    ``i`` is the element's index in the global tensor: given a data axis
+    (``data_axis``) a rank's input is rows ``[r*b, (r+1)*b)`` of the global
+    batch, and a layer on a tensor-parallel shard (``shard = (dim, rank,
+    ranks)``, set by ``parallel.tp.place_params``) holds slice ``rank`` of
+    ``ranks`` along ``dim``: each takes its slice of the global mask."""
+
+    data_axis = None  # parallel.mesh.Axis
 
     def __init__(self, p: float, layer: int = 0):
         super().__init__(p)
         self.layer = layer
+        self.shard = None
         self.key = self.keep = self.seen = None
 
-    def salted_index(self, n: int, device) -> torch.Tensor:
-        """``i ^ mix32(layer + 1)`` for the first ``n`` elements (int64)."""
-        return torch.arange(n, device=device) ^ mix32(self.layer + 1)
+    def salted_index(self, shape, device) -> torch.Tensor:
+        """``i ^ mix32(layer + 1)`` for each element of a (local) tensor of
+        ``shape`` (int64, flat), ``i`` its global index."""
+        shape = tuple(shape)
+        slices = []
+        r, ranks = data_rows(self.data_axis)
+        if ranks > 1 and shape:
+            slices.append((0, r, ranks))
+        if self.shard is not None:
+            slices.append(self.shard)
+        if not slices:
+            n = int(np.prod(shape, dtype=np.int64))
+            return torch.arange(n, device=device) ^ mix32(self.layer + 1)
+        gshape = list(shape)
+        for dim, _, k in slices:
+            gshape[dim] *= k
+        idx = torch.arange(int(np.prod(gshape, dtype=np.int64)),
+                           device=device).view(gshape)
+        for dim, i, _ in slices:
+            idx = idx.narrow(dim, i * shape[dim], shape[dim])
+        return idx.reshape(-1) ^ mix32(self.layer + 1)
 
     def forward(self, x):
         if not self.training or self.p == 0.0:
@@ -120,10 +166,10 @@ class KeyedDropout(nn.Dropout):
             if self.key is None:
                 raise RuntimeError("KeyedDropout in train mode needs the key "
                                    "its model sets for the forward")
-            keep = mix32(self.salted_index(x.numel(), x.device) ^ self.key
+            keep = mix32(self.salted_index(x.shape, x.device) ^ self.key
                          ) < _keep_threshold(self.p)
             if self.seen is not None:
-                self.seen.append((self, x.numel()))
+                self.seen.append((self, tuple(x.shape)))
         return torch.where(keep.view(x.shape), x / (1.0 - self.p), 0.0)
 
 
@@ -137,8 +183,9 @@ class DropoutMasks:
 
     def __init__(self, seen, device):
         self.slices, index, threshold, at = [], [], [], 0
-        for layer, n in seen:
-            index.append(layer.salted_index(n, device))
+        for layer, shape in seen:
+            n = int(np.prod(shape, dtype=np.int64))
+            index.append(layer.salted_index(shape, device))
             threshold.append(torch.full((n,), _keep_threshold(layer.p),
                                         dtype=torch.int64, device=device))
             self.slices.append((layer, at, n))
@@ -168,8 +215,11 @@ class Linear(nn.Linear):
     the weight over its second axis."""
 
     dtype: Optional[torch.dtype] = None
+    tp = None  # a tensor-parallel shard's forward (parallel.tp.place_params)
 
     def forward(self, x):
+        if self.tp is not None:
+            return self.tp.forward(self, x)
         lead = x.shape[:-1]
         x = x.reshape(-1, x.shape[-1])
         if self.dtype is None:
@@ -255,6 +305,7 @@ class GraphNorm(nn.Module):
     inside; on a 1-D vector per sample the two differ only by eps."""
 
     dtype: Optional[torch.dtype] = None  # of the result; None: the input's
+    tp = None  # on a channel shard: parallel.tp.GraphNormShard
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -263,6 +314,8 @@ class GraphNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
+        if self.tp is not None:
+            return self.tp.forward(self, x)
         dims = tuple(range(1, x.ndim)) if x.ndim > 1 else (0,)
         xf = x.to(torch.float32)
         mean = xf.mean(dim=dims, keepdim=True)
@@ -327,7 +380,8 @@ class ViTSelfAttention(nn.Module):
 
     def forward(self, x, key_mask=None):
         b, n, _ = x.shape
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, self.head_dim)
+        # (B, N, 3, H, hd); H is the rank's heads on a tensor-parallel shard
+        qkv = self.qkv(x).reshape(b, n, 3, -1, self.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, hd)
         # scores in f32 from the compute dtype's q, k (JAX's
         # preferred_element_type=f32); products of bf16 values are exact

@@ -7,8 +7,11 @@ not ported — the port calls ``nn.Conv2d``'s own conv.  What it keeps is
 flax's dtype promotion: parameters are stored in fp32 and a conv computes
 in ``compute_dtype`` (bf16 under the default config).  ``nn.BatchNorm2d``
 takes a bf16 input with its fp32 parameters and statistics, normalizes in
-fp32 and returns bf16; :class:`BatchNorm2d` changes only its train-mode
-running-variance update, to flax's.
+fp32 and returns bf16; :class:`BatchNorm2d` changes its train-mode
+running-variance update to flax's and, given a data axis of more than one
+rank (``data_axis``, set by ``parallel.mesh.set_data_axis``), takes its
+statistics over the global batch, as JAX computes them over the sharded
+global array.
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from cervical_tpu_torch.parallel.mesh import all_sum
 
 
 class Conv2d(nn.Conv2d):
@@ -46,9 +51,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``(1-m) rv + m var`` from the old value.
     """
 
+    data_axis = None  # parallel.mesh.Axis: statistics of the global batch
+
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if self.data_axis is not None and self.data_axis.size > 1:
+            return self._global_forward(x, self.data_axis.group)
         n = x.numel() // x.shape[1]
         with torch.no_grad():
             keep = self.running_var * (1.0 - self.momentum)
@@ -59,3 +68,29 @@ class BatchNorm2d(nn.BatchNorm2d):
             torch.lerp(keep, rv, (n - 1) / n, out=self.running_var)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_forward(self, x, group):
+        """Train mode over the global batch: the per-channel sum and count,
+        then the sum of squared deviations from the global mean, each
+        all-reduced with autograd (its backward sums the ranks' gradients);
+        normalised with the global mean and biased variance in f32 (f64
+        for f64 input), the running stats updated by flax's rule."""
+        dims = (0, 2, 3)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        c = x.shape[1]
+        count = torch.full((1,), x.numel() // c, dtype=xf.dtype,
+                           device=x.device)
+        s = all_sum(torch.cat([xf.sum(dims), count]), group)
+        n = s[c:]
+        mean = s[:c] / n
+        d = xf - mean.view(1, c, 1, 1)
+        var = all_sum((d * d).sum(dims), group) / n
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = d * scale.view(1, c, 1, 1) + self.bias.view(1, c, 1, 1)
+        with torch.no_grad():
+            m = self.momentum
+            rm, rv = self.running_mean, self.running_var
+            rm.lerp_(mean.detach().to(rm.dtype), m)
+            rv.lerp_(var.detach().to(rv.dtype), m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)

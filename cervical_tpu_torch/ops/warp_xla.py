@@ -229,7 +229,8 @@ def rotation_first_order(angles) -> np.ndarray:
 def augment_batch_einsum(images, labels, params, dst_hw: Tuple[int, int],
                          letterbox: bool = False, normalized: bool = True,
                          rotate: bool = True, rotate_capacity: int = 0,
-                         blur_capacity: int = 0, two_shear: bool = False,
+                         blur: bool = True, blur_capacity: int = 0,
+                         two_shear: bool = False,
                          int8_resample: bool = False):
     """``images`` (B, H, W, 3) uint8 and ``labels`` (B, H, W) uint8 ->
     (images (B, S, S, 3) bf16, in [0, 1] if ``normalized`` else [0, 255],
@@ -240,7 +241,8 @@ def augment_batch_einsum(images, labels, params, dst_hw: Tuple[int, int],
     ``letterbox`` resamples only.  Otherwise: ``rotate_capacity`` K > 0
     rotates only the first K samples (``rotate_prefix=K``), 0 all of them,
     ``rotate=False`` none; ``blur_capacity`` K > 0 blurs (where flagged)
-    only the last K (``blur_suffix=K``), 0 any flagged sample;
+    only the last K (``blur_suffix=K``), 0 any flagged sample, ``blur=False``
+    none (a data-parallel rank that holds none of the blurred rows);
     ``two_shear`` the 2-shear rotation; ``int8_resample`` the integer-tap
     resample (images quantised to uint8 between passes, labels exact)."""
     if params["scale"].device != images.device:
@@ -270,7 +272,7 @@ def augment_batch_einsum(images, labels, params, dst_hw: Tuple[int, int],
 
     # the /255 folds into the HSV pass; the blur, linear, runs before it
     scale = (1.0 / 255.0) if normalized else 1.0
-    gains, blur = params["gains"], params["blur"]
+    gains, flags = params["gains"], params["blur"]
 
     def hsv(x, g):
         return hsv_jitter_batched_fast(x, g, scale)
@@ -282,12 +284,12 @@ def augment_batch_einsum(images, labels, params, dst_hw: Tuple[int, int],
         return rotate_planes(torch.cat([img_u8, lbl[:k]], dim=-1), wp[:k],
                              two_shear)
 
-    def blurred_where(x, flags):
-        return torch.where(flags[:, None, None, None],
+    def blurred_where(x, on):
+        return torch.where(on[:, None, None, None],
                            gaussian_blur_einsum(x), x)
 
     k = (rotate_capacity if rotate_capacity > 0 else b) if rotate else 0
-    m = blur_capacity
+    m = blur_capacity if blur else 0
     if 0 < k and 0 < m and k + m <= b:
         # the rotated head, the untouched middle and the blurred tail meet
         # in one concatenation (the JAX package's piecewise fast path)
@@ -299,7 +301,8 @@ def augment_batch_einsum(images, labels, params, dst_hw: Tuple[int, int],
         pieces = [hsv(rot[..., :3].to(torch.bfloat16), gains[:k])]
         if k < b - m:
             pieces.append(hsv(img[k:b - m], gains[k:b - m]))
-        pieces.append(hsv(blurred_where(tail, blur[b - m:]), gains[b - m:]))
+        pieces.append(hsv(blurred_where(tail, flags[b - m:]),
+                          gains[b - m:]))
         return torch.cat(pieces), lbl[..., 0]
 
     if img.dtype == torch.uint8:
@@ -309,7 +312,7 @@ def augment_batch_einsum(images, labels, params, dst_hw: Tuple[int, int],
         img = torch.cat([rot[..., :3].to(torch.bfloat16), img[k:]])
         lbl = torch.cat([rot[..., 3:], lbl[k:]])
     if m > 0:
-        img = torch.cat([img[:-m], blurred_where(img[-m:], blur[-m:])])
-    else:
-        img = blurred_where(img, blur)
+        img = torch.cat([img[:-m], blurred_where(img[-m:], flags[-m:])])
+    elif blur:
+        img = blurred_where(img, flags)
     return hsv(img, gains), lbl[..., 0]

@@ -6,7 +6,9 @@ Reference: ``Segmentation/deeplabv3+/utils/callbacks.py`` — TensorBoard
 scalars + ``epoch_loss.txt``/``epoch_val_loss.txt`` + smoothed loss PNG
 (:29-79), and ``EvalCallback`` writing ``epoch_miou.txt`` + a mIoU curve
 (:84-200).  tensorboardX and matplotlib are optional, as in the JAX
-package.  The port trains in one process, so every callback writes.
+package.  Under a process group only the primary rank writes files (the
+reference's ``local_rank == 0`` guards, train.py:353-359); every rank keeps
+the in-memory history.
 """
 
 from __future__ import annotations
@@ -16,6 +18,8 @@ import os
 import numpy as np
 import torch
 
+from cervical_tpu_torch.parallel.mesh import is_primary
+
 
 class LossHistory:
     """Append per-epoch losses to txt files, optional tensorboardX scalars,
@@ -23,20 +27,26 @@ class LossHistory:
 
     def __init__(self, log_dir: str):
         self.log_dir = log_dir
-        os.makedirs(log_dir, exist_ok=True)
+        self._primary = is_primary()
+        if self._primary:
+            os.makedirs(log_dir, exist_ok=True)
         self.losses = []
         self.val_losses = []
-        try:
-            from tensorboardX import SummaryWriter
-            self.writer = SummaryWriter(log_dir)
-        except Exception:
-            self.writer = None
+        self.writer = None
+        if self._primary:
+            try:
+                from tensorboardX import SummaryWriter
+                self.writer = SummaryWriter(log_dir)
+            except Exception:
+                self.writer = None
 
     def add_model_graph(self, model: torch.nn.Module, example: torch.Tensor):
         """``add_graph`` (utils/callbacks.py:29-34): the text of a
         ``torch.export`` of ``model`` at ``example`` goes to
         ``model_graph.txt`` and, with tensorboardX, into a text summary;
         where the export fails, the reason does."""
+        if not self._primary:
+            return
         try:
             text = str(torch.export.export(model, (example,)))
         except Exception as e:  # the export's coverage varies by version
@@ -51,6 +61,8 @@ class LossHistory:
     def append_loss(self, epoch: int, loss: float, val_loss: float):
         self.losses.append(loss)
         self.val_losses.append(val_loss)
+        if not self._primary:
+            return
         for name, v in (("epoch_loss", loss), ("epoch_val_loss", val_loss)):
             with open(os.path.join(self.log_dir, name + ".txt"), "a") as f:
                 f.write(f"{v}\n")
@@ -60,7 +72,7 @@ class LossHistory:
         self.loss_plot()
 
     def loss_plot(self):
-        plt = _pyplot()
+        plt = _pyplot() if self._primary else None
         if plt is None:
             return
         it = range(len(self.losses))
@@ -114,7 +126,9 @@ class PredictorMiouCallback:
         self.period = period
         self.batch_size = batch_size
         self.device = device
-        os.makedirs(log_dir, exist_ok=True)
+        self._primary = is_primary()
+        if self._primary:
+            os.makedirs(log_dir, exist_ok=True)
         self._predictor = None
 
     def should_eval(self, epoch: int) -> bool:
@@ -158,6 +172,8 @@ class PredictorMiouCallback:
         for b in buckets.values():
             flush(b)
         miou = M.summarize_hist(hist)["miou"]
+        if not self._primary:
+            return miou
         with open(os.path.join(self.log_dir, "epoch_miou_predictor.txt"),
                   "a") as f:
             f.write(f"{miou}\n")
@@ -173,7 +189,9 @@ class MiouHistory:
     def __init__(self, log_dir: str, period: int = 10):
         self.log_dir = log_dir
         self.period = period
-        os.makedirs(log_dir, exist_ok=True)
+        self._primary = is_primary()
+        if self._primary:
+            os.makedirs(log_dir, exist_ok=True)
         self.epochs = [0]
         self.mious = [0.0]
 
@@ -183,6 +201,8 @@ class MiouHistory:
     def append(self, epoch: int, miou: float):
         self.epochs.append(epoch + 1)
         self.mious.append(miou)
+        if not self._primary:
+            return
         with open(os.path.join(self.log_dir, "epoch_miou.txt"), "a") as f:
             f.write(f"{miou}\n")
         plt = _pyplot()
@@ -212,7 +232,9 @@ class FusionHistory:
         self.log_dir = log_dir
         self.tag = f"seed{seed}_fold{fold}"
         self.milestones = set(milestones)
-        os.makedirs(log_dir, exist_ok=True)
+        self._primary = is_primary()
+        if self._primary:
+            os.makedirs(log_dir, exist_ok=True)
         self.train_loss, self.val_loss = [], []
         self.train_acc, self.val_acc = [], []
 
@@ -222,6 +244,8 @@ class FusionHistory:
         self.val_loss.append(val_loss)
         self.train_acc.append(train_acc)
         self.val_acc.append(val_acc)
+        if not self._primary:
+            return
         with open(os.path.join(self.log_dir, f"{self.tag}_metrics.txt"),
                   "a") as f:
             f.write(f"{epoch}\t{train_loss:.6f}\t{val_loss:.6f}\t"
@@ -230,7 +254,7 @@ class FusionHistory:
             self.plot(epoch + 1)
 
     def plot(self, epoch=None):
-        plt = _pyplot()
+        plt = _pyplot() if self._primary else None
         if plt is None:
             return
         suffix = f"_ep{epoch}" if epoch else ""

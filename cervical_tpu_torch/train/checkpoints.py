@@ -8,7 +8,9 @@ the reference, which saves ``model.state_dict()`` alone, a checkpoint holds
 the model (params and BatchNorm running stats), both optimizers' states,
 the step count and ``extra`` (epoch, val loss), so a resume is exact.  The
 trainer's random generators are not saved, as the JAX package saves no
-PRNG key.
+PRNG key.  Under a process group the ranks hold the same state: only the
+primary rank writes (utils_fit.py:185-198), then every rank waits at a
+barrier, so a restore that follows reads a whole file on every rank.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import os
 from typing import Optional
 
 import torch
+
+from cervical_tpu_torch.parallel.mesh import barrier, is_primary
 
 
 class CheckpointManager:
@@ -27,10 +31,13 @@ class CheckpointManager:
         self.save_dir = os.path.abspath(save_dir)
         self.save_period = save_period
         self.best_val_loss = float("inf")
-        os.makedirs(self.save_dir, exist_ok=True)
+        if is_primary():
+            os.makedirs(self.save_dir, exist_ok=True)
 
     def _save(self, name: str, state, extra=None) -> str:
         path = os.path.join(self.save_dir, name)
+        if not is_primary():
+            return path
         payload = {"model": state.model.state_dict(),
                    "opt_state": {k: opt.state_dict()
                                  for k, opt in state.opt_state.items()},
@@ -56,6 +63,7 @@ class CheckpointManager:
             self.best_val_loss = val_loss
             saved.append(self._save("best_epoch_weights", state, extra))
         saved.append(self._save("last_epoch_weights", state, extra))
+        barrier("checkpoint")
         return saved
 
     def restore(self, name: str = "last_epoch_weights", state_template=None):

@@ -32,6 +32,12 @@ variants).
   same results as the sequential engine.
 * ``dtype="bfloat16"`` computes in bf16 by flax's rule (params, Adam and
   the loss stay f32).
+* ``mesh`` (``parallel.make_mesh``): data parallelism over ``data`` — each
+  rank takes its rows of every global micro-batch, draws the global
+  batch's MAE masks and dropout masks and keeps its rows, the loss sums are
+  the global batch's and the gradient all-reduce divides by the rank count
+  — and the tensor-parallel layout of ``parallel/tp.py`` over ``model``.
+  Evaluation runs replicated on every rank with the full weights.
 """
 
 from __future__ import annotations
@@ -52,10 +58,12 @@ from cervical_tpu_torch.data.fusion_data import subset
 from cervical_tpu_torch.data.masks import (generate_modal_masks,
                                            imputation_masks)
 from cervical_tpu_torch.models.fusion import IMAGE_MODALITIES, FusionMAE
+from cervical_tpu_torch.parallel import mesh as P
+from cervical_tpu_torch.parallel import tp as TP
 from cervical_tpu_torch.train import fold_stack as FS
 from cervical_tpu_torch.train.graphs import GraphedCall
 from cervical_tpu_torch.train.schedules import fusion_step_decay
-from cervical_tpu_torch.train.seg_trainer import TrainState
+from cervical_tpu_torch.train.seg_trainer import TrainState, graph_rule
 
 
 def _to_jsonable(x):
@@ -102,11 +110,12 @@ def stream_seeds(*key: int) -> np.ndarray:
     return np.random.SeedSequence(list(key)).generate_state(4)
 
 
-def make_loss(cfg: FusionTrainConfig):
+def make_loss(cfg: FusionTrainConfig, data=None):
     """``loss(out, labels, mae_mask, weights) -> (total, ce_all, preds)``:
     the weighted multi-head CE + MAE-MSE of a train-mode forward's outputs,
     in f32.  ``weights`` (B,): weight-0 rows count as absent.  ``preds``
-    (1 + T, B): the argmax of the heads ``["all", *modalities]``."""
+    (1 + T, B): the argmax of the heads ``["all", *modalities]``.
+    ``data`` (a ``parallel.mesh.Axis``): the means span its ranks' rows."""
     hw = head_weights(cfg)
     mods = tuple(cfg.modalities)
     heads = ("all",) + mods
@@ -123,23 +132,27 @@ def make_loss(cfg: FusionTrainConfig):
             per = se / torch.clamp(torch.sum(m, dim=(-2, -1))
                                    * out["mae_out"].shape[-1], min=1.0)
             w = weights.to(torch.float32)
-            mae_mse = (cfg.mse_loss_of_mae_factor * torch.sum(per * w)
-                       / torch.clamp(torch.sum(w), min=1.0))
+            num, den = P.global_sums(data, torch.sum(per * w),
+                                     torch.sum(w))
+            mae_mse = (cfg.mse_loss_of_mae_factor * num
+                       / torch.clamp(den, min=1.0))
         total, parts = losses.fusion_multihead_loss(
             out["logits"], labels, hw, mae_mse, mse_factor=5.0,
-            num_micro_batches=1, sample_weights=weights)
+            num_micro_batches=1, sample_weights=weights, data=data)
         preds = torch.stack([out["logits"][k].argmax(dim=-1) for k in heads])
         return total, parts["all"], preds
 
     return loss
 
 
-def make_train_step(cfg: FusionTrainConfig):
+def make_train_step(cfg: FusionTrainConfig, data=None):
     """``step(state, feats, labels, mae_mask, weights, lr, do_step) ->
     {"loss", "ce_all", "preds"}``: one train step in place on ``state``
     (forward in train mode, :func:`make_loss`, backward, and with
-    ``do_step`` Adam).  Metrics are unsynced tensors."""
-    loss = make_loss(cfg)
+    ``do_step`` Adam).  Metrics are unsynced tensors.  ``data``: the batch
+    is this rank's rows of the global batch on that data axis; the loss
+    and the gradient are the global batch's."""
+    loss = make_loss(cfg, data)
 
     def step(state: TrainState, feats, labels, mae_mask, weights, lr,
              do_step: bool):
@@ -150,6 +163,9 @@ def make_train_step(cfg: FusionTrainConfig):
         total, ce_all, preds = loss(model(feats, mae_mask=mae_mask), labels,
                                     mae_mask, weights)
         total.backward()
+        if data is not None:  # the global gradient, one flat all_reduce
+            P.allreduce_mean_([p.grad for pg in opt.param_groups
+                               for p in pg["params"]], data.group, data.size)
         if do_step:
             for pg in opt.param_groups:
                 pg["lr"] = lr
@@ -173,19 +189,25 @@ def _group_ckpt_path(save_dir: Optional[str]) -> Optional[str]:
 
 
 class FusionTrainer:
-    """The fusion train step, epoch, evaluation and CV loop on one card
-    (``device``, ``cuda`` by default).  ``mesh`` (the JAX package's tensor-
-    parallel layout) is not ported and raises."""
+    """The fusion train step, epoch, evaluation and CV loop on one device
+    (``device``, ``cuda`` by default), or one rank of a ``mesh``
+    (``parallel.make_mesh``): data parallel over its ``data`` axis, the
+    model tensor-parallel over its ``model`` axis (``parallel.tp``).  Under
+    a mesh the train step is a CUDA graph under NCCL and eager under gloo
+    (``seg_trainer.graph_rule``); every rank starts from rank 0's weights."""
 
     def __init__(self, cfg: FusionTrainConfig, device: str = "cuda",
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "a tensor-parallel mesh is not ported yet (ROADMAP §1, the "
-                "parallel layouts); the port trains on one card")
+        from torch.distributed.device_mesh import DeviceMesh
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a DeviceMesh (parallel.make_mesh)"
+                            f", not {type(mesh).__name__}")
         compute_dtype(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = P.rank_device(device)
+        self.mesh = mesh
+        self.data = P.axis(mesh, "data") if mesh is not None else None
+        self.graphed = graph_rule(self.device, mesh)
         self._stop_requested = False
         self._step = None
         self._graphs: dict = {}
@@ -211,6 +233,12 @@ class FusionTrainer:
         cfg = self.cfg
         model = build_model(cfg, self.dropout_seed).init_weights(
             generator or self.init_generator).to(self.device)
+        if self.mesh is not None:
+            P.broadcast_([t.detach() for t in (*model.parameters(),
+                                               *model.buffers())])
+            TP.place_params(model, self.mesh, log=print if P.is_primary()
+                            else (lambda msg: None))
+            P.set_data_axis(model, self.data)
         adam = torch.optim.Adam(model.parameters(), lr=cfg.lr,
                                 betas=(0.9, 0.999), eps=1e-8,
                                 weight_decay=cfg.weight_decay,
@@ -219,8 +247,13 @@ class FusionTrainer:
 
     def train_step_fn(self):
         if self._step is None:
-            self._step = make_train_step(self.cfg)
+            self._step = make_train_step(self.cfg, self.data)
         return self._step
+
+    def weights(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """The model's full ``state_dict`` (tensor-parallel shards gathered:
+        a collective under a mesh)."""
+        return TP.full_state_dict(state.model)
 
     def _lr_arg(self, lr: float):
         """On the card a 0-dim device tensor that Adam reads there,
@@ -256,7 +289,7 @@ class FusionTrainer:
                                 for m, v in feats.items()},
                         labels.index_select(0, idx), mask, w, lr, do_step)
 
-        if not graph or self.device.type != "cuda":
+        if not graph or not self.graphed:
             return fn
         data = tuple(v.data_ptr() for v in feats.values()) + (
             labels.data_ptr(), labels.shape[0])
@@ -286,7 +319,9 @@ class FusionTrainer:
         every micro-batch replays the step's CUDA graph on the card.
         Without it the steps are eager and the tail is unpadded.  A cohort
         already on the device (``cross_validate`` puts it there) is read in
-        place; numpy is uploaded."""
+        place; numpy is uploaded.  Under a mesh every rank draws the same
+        shuffle and masks, steps on its rows of each micro-batch (the tail
+        padded always) and the predictions are gathered."""
         cfg = self.cfg
         bs = batch_size or cfg.batch_size
         dev = self._device_cohort(ds)
@@ -298,7 +333,7 @@ class FusionTrainer:
         do_step = not (cfg.epoch0_no_step and epoch == 0)
         lr_arg = self._lr_arg(lr)
 
-        rows = (n + bs - 1) // bs * bs if use_scan else n
+        rows = (n + bs - 1) // bs * bs if use_scan or self.mesh else n
         idx = torch.from_numpy(np.concatenate(
             [order, np.zeros(rows - n, order.dtype)])).to(self.device)
         w = torch.from_numpy(np.concatenate(
@@ -307,14 +342,23 @@ class FusionTrainer:
         masks = (generate_modal_masks(self.mask_generator, rows, t) if t > 1
                  else torch.zeros((rows, 1), dtype=torch.bool,
                                   device=self.device))
-        call = self._batch_step(state, dev["feats"], dev["labels"], bs,
-                                do_step, graph=use_scan)
-        outs = [call(idx[s:s + bs], masks[s:s + bs], w[s:s + bs], lr_arg)
+        mine = P.rank_rows(range(bs), self.data)  # this rank's rows of each
+        call = self._batch_step(state, dev["feats"], dev["labels"],
+                                len(mine), do_step, graph=use_scan)
+        outs = [call(idx[s + mine.start:s + mine.stop],
+                     masks[s + mine.start:s + mine.stop],
+                     w[s + mine.start:s + mine.stop], lr_arg)
                 for s in range(0, rows, bs)]
         total_ce = float(torch.stack([o["ce_all"] for o in outs]).sum())
         nb = len(outs)
-        preds = torch.cat([o["preds"] for o in outs], dim=1)[:, :n]
-        preds = preds.cpu().numpy()
+        preds = [o["preds"] for o in outs]                     # (H, b) each
+        if self.data is None:
+            preds = torch.cat(preds, dim=1)
+        else:  # each micro-batch's ranks' rows, in order
+            preds = P.gather_rows(torch.stack(preds, dim=1), self.data.group,
+                                  self.data.rank, self.data.size,
+                                  dim=2).flatten(1)
+        preds = preds[:, :n].cpu().numpy()
 
         true = labels_np[order]
         report = {"loss": total_ce / max(nb, 1)}
@@ -426,6 +470,10 @@ class FusionTrainer:
         if threading.current_thread() is threading.main_thread():
             for sig in (signal.SIGTERM, signal.SIGINT):
                 prev_handlers[sig] = signal.signal(sig, _request_stop)
+        if vmap_folds and self.mesh is not None:
+            raise ValueError("vmap_folds is incompatible with a TP mesh — "
+                             "fold-stacked params cannot also be "
+                             "tensor-sharded")
         try:
             if vmap_folds:
                 return self._cross_validate_vmapped(
@@ -456,12 +504,13 @@ class FusionTrainer:
     @staticmethod
     def _write_progress(save_dir, folds) -> None:
         """Durable fold-level progress (atomic rename): the resume source
-        after a stop or a crash."""
-        if save_dir:
+        after a stop or a crash.  The primary rank writes, all wait."""
+        if save_dir and P.is_primary():
             path = os.path.join(save_dir, "cv_progress.json")
             with open(path + ".tmp", "w") as f:
                 json.dump(_to_jsonable({"folds": folds}), f)
             os.replace(path + ".tmp", path)
+        P.barrier("cv_progress")
 
     def _finish_fold(self, ds, seed, fold, test_idx, best_params, history,
                      save_dir):
@@ -470,7 +519,7 @@ class FusionTrainer:
         final = self.predict(best_params, subset(ds, test_idx))
         if history is not None:
             history.plot()
-        if save_dir:
+        if save_dir and P.is_primary():
             from cervical_tpu_torch.inference.fusion_predictor import (
                 save_params_npz)
             save_params_npz(os.path.join(
@@ -479,7 +528,7 @@ class FusionTrainer:
 
     def _results(self, results, save_dir):
         mean_acc = float(np.mean([r["test"]["acc_all"] for r in results]))
-        if save_dir:
+        if save_dir and P.is_primary():
             with open(os.path.join(save_dir, "cv_results.json"), "w") as f:
                 json.dump(_to_jsonable(
                     {"folds": results,
@@ -529,11 +578,13 @@ class FusionTrainer:
                 test_ds = subset(ds, test_idx)
                 epoch_test = [] if cfg.per_epoch_test else None
                 for epoch in range(epochs):
+                    self._stop_requested = P.any_rank(
+                        self._stop_requested, self.device)
                     if self._stop_requested:
                         break
                     rep = self.train_epoch(state, train_ds, epoch,
                                            schedule(epoch))
-                    weights = state.model.state_dict()
+                    weights = self.weights(state)
                     # the reference evaluates test and val every epoch
                     # (my_train(full).py:538-539); selection is val-based
                     if cfg.per_epoch_test:
@@ -559,7 +610,7 @@ class FusionTrainer:
                         log(msg)
                 final = self._finish_fold(
                     ds, seed, fold, test_idx,
-                    best["params"] or state.model.state_dict(), history,
+                    best["params"] or self.weights(state), history,
                     save_dir)
                 fold_results.append({"seed": seed, "fold": fold,
                                      "best_epoch": best["epoch"],

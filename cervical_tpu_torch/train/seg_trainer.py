@@ -19,6 +19,17 @@ graph (``train/graphs.py``), on the CPU the same steps run eagerly.  With
 ``device_resident`` the epoch reads its batches from a copy of the dataset
 on the card (``data/resident.py``) and only index vectors, parameter rows
 and the LR cross the host link.
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): one process per device;
+each rank feeds its rows of every global batch and draws the global
+batch's augmentation rows and dropout masks from the shared seeded streams,
+keeping its own rows.  The loss and the BatchNorm statistics are the global
+batch's (their sums all-reduced with autograd), and one flat ``all_reduce``
+per param group after backward, divided by the rank count, leaves every
+rank the global gradient: the step of ``n`` ranks is the one-process step
+on the global batch.  The model is not wrapped in
+``DistributedDataParallel``: the step holds its collectives, so under NCCL
+the K-step CUDA graph captures them.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from cervical_tpu_torch import losses
@@ -40,6 +52,7 @@ from cervical_tpu_torch.data.pipeline import device_prefetch
 from cervical_tpu_torch.metrics import confusion_matrix, summarize_hist
 from cervical_tpu_torch.models.deeplab import DeepLab
 from cervical_tpu_torch.ops import augment as aug_ops
+from cervical_tpu_torch.parallel import mesh as P
 from cervical_tpu_torch.train import schedules
 from cervical_tpu_torch.train.graphs import GraphedCall
 
@@ -195,25 +208,26 @@ def _class_weights(weights: tuple, device: torch.device) -> torch.Tensor:
 
 def seg_loss_bundle_fn(cfg: SegTrainConfig, logits, labels,
                        sample_weights=None, resize_to=None,
-                       return_preds: bool = False):
+                       return_preds: bool = False, data=None):
     """:func:`losses.seg_loss_bundle` with the config's classes, class
-    weights and loss choice; ``logits`` NHWC."""
+    weights and loss choice; ``logits`` NHWC; ``data`` the data axis."""
     return losses.seg_loss_bundle(
         logits, labels, _class_weights(tuple(cfg.cls_weights), logits.device),
         cfg.data.num_classes,
         focal=cfg.focal_loss, dice=cfg.dice_loss,
         sample_weights=sample_weights, resize_to=resize_to,
-        return_preds=return_preds)
+        return_preds=return_preds, data=data)
 
 
-def make_train_aug_fn(cfg: SegTrainConfig):
+def make_train_aug_fn(cfg: SegTrainConfig, data=None):
     """The train-time augmentation ``(images_u8, labels_u8, params) ->
     (images (B, H, W, 3) bf16 in [0, 1], labels uint8)`` of
     ``cfg.data.aug_backend``:
 
     * "einsum" (the default): ``ops.warp_xla.augment_batch_einsum``,
       rotation on the first and blur on the last ``max(1, B // 4)`` images
-      (the step's sampler draws them there), ``cfg.data.two_shear``;
+      (the step's sampler draws them there; a rank of the data axis
+      ``data`` holds its share of those rows), ``cfg.data.two_shear``;
     * "pallas": the K1-K3 kernel path (``ops.warp.augment_batch_kernels``,
       the JAX package's name), exact 3-shear, rotation and blur per
       image."""
@@ -221,12 +235,14 @@ def make_train_aug_fn(cfg: SegTrainConfig):
     backend = cfg.data.aug_backend
     if backend == "einsum":
         from cervical_tpu_torch.ops.warp_xla import augment_batch_einsum
+        rows = (0, 1) if data is None else (data.rank, data.size)
 
         def aug(images, labels, params):
-            cap = max(1, images.shape[0] // 4)
+            rot, blur = einsum_capacities(images.shape[0], *rows)
             return augment_batch_einsum(images, labels, params, hw,
-                                        rotate_capacity=cap,
-                                        blur_capacity=cap,
+                                        rotate=rot > 0,
+                                        rotate_capacity=rot,
+                                        blur=blur > 0, blur_capacity=blur,
                                         two_shear=cfg.data.two_shear)
     elif backend == "pallas":
         from cervical_tpu_torch.ops.warp import augment_batch_kernels
@@ -237,6 +253,18 @@ def make_train_aug_fn(cfg: SegTrainConfig):
         raise ValueError(f"unknown aug_backend {backend!r} "
                          "(expected 'einsum' or 'pallas')")
     return aug
+
+
+def einsum_capacities(b: int, rank: int = 0, ranks: int = 1):
+    """(rotated, blurred) row counts of a rank's ``b`` rows for the einsum
+    backend: the global batch of ``ranks * b`` rotates its first and blurs
+    its last ``max(1, B // 4)`` rows, so a rank holds a prefix of the
+    rotated rows and a suffix of the blurred ones (possibly none)."""
+    big = b * ranks
+    cap = max(1, big // 4)
+    rot = min(b, max(0, cap - rank * b))
+    blur = min(b, max(0, (rank + 1) * b - (big - cap)))
+    return rot, blur
 
 
 def _sample_step_aug_params(cfg: SegTrainConfig, generator: torch.Generator,
@@ -263,14 +291,16 @@ def _check_aug_cfg(cfg: SegTrainConfig):
 
 
 def _make_train_body(cfg: SegTrainConfig, frozen: bool,
-                     pre_augmented: bool = False):
+                     pre_augmented: bool = False, data=None):
     """``step(state, images, labels, aug_params, lr) -> metrics``: one
     optimizer step in place on ``state``.  The metrics are unsynced 0-dim
     tensors ``loss``, ``main_loss``, ``f_score``.  ``lr`` is a float, or on
     the card a 0-dim device tensor (:func:`make_optimizer`).  ``pre_augmented``:
     the batch arrives augmented (bf16 [0, 1] images, uint8 labels) and
-    ``aug_params`` is ignored."""
-    aug_fn = None if pre_augmented else make_train_aug_fn(cfg)
+    ``aug_params`` is ignored.  ``data`` (a ``parallel.mesh.Axis``): the
+    batch is this rank's rows of the global batch; the loss is the global
+    batch's, and the gradient all-reduced to the global one."""
+    aug_fn = None if pre_augmented else make_train_aug_fn(cfg, data)
     nc = cfg.data.num_classes
     dt = _dtype(cfg)
 
@@ -287,11 +317,16 @@ def _make_train_body(cfg: SegTrainConfig, frozen: bool,
                        freeze_backbone=frozen)
         total, main, fs = seg_loss_bundle_fn(
             cfg, logits.permute(0, 2, 3, 1), labels,
-            resize_to=tuple(images.shape[1:3]))
+            resize_to=tuple(images.shape[1:3]), data=data)
         total.backward()
         # a frozen backbone gets no optimizer step at all: params and Adam
         # state (moments and count) untouched
         groups = ("head",) if frozen else ("head", "backbone")
+        if data is not None:  # the global gradient, one flat all_reduce each
+            for g in groups:
+                P.allreduce_mean_(
+                    [p.grad for pg in state.opt_state[g].param_groups
+                     for p in pg["params"]], data.group, data.size)
         for g in groups:
             opt = state.opt_state[g]
             for pg in opt.param_groups:
@@ -304,19 +339,20 @@ def _make_train_body(cfg: SegTrainConfig, frozen: bool,
     return step
 
 
-def make_train_step(cfg: SegTrainConfig, frozen: bool):
+def make_train_step(cfg: SegTrainConfig, frozen: bool, data=None):
     """``step(state, images_u8 (B,H,W,3), labels_u8 (B,H,W), aug_params,
     lr) -> metrics``: one optimizer step in place on ``state``
     (:func:`_make_train_body`)."""
     _check_aug_cfg(cfg)
-    return _make_train_body(cfg, frozen)
+    return _make_train_body(cfg, frozen, data=data)
 
 
 def _stack(metrics):
     return {k: torch.stack([m[k] for m in metrics]) for k in metrics[0]}
 
 
-def make_train_step_scan(cfg: SegTrainConfig, frozen: bool, k: int):
+def make_train_step_scan(cfg: SegTrainConfig, frozen: bool, k: int,
+                         data=None):
     """``scan(state, images (K,B,H,W,3) u8, labels (K,B,H,W) u8, rows
     (K,B,10), lr) -> metrics`` of shape (K,): K optimizer steps, the
     port's counterpart of the JAX package's ``make_train_step_scan``.
@@ -328,8 +364,8 @@ def make_train_step_scan(cfg: SegTrainConfig, frozen: bool, k: int):
     path bit for bit, since the kernels rotate and blur per image."""
     _check_aug_cfg(cfg)
     if cfg.data.aug_pre_batch and k > 1:
-        body = _make_train_body(cfg, frozen, pre_augmented=True)
-        aug_fn = make_train_aug_fn(cfg)
+        body = _make_train_body(cfg, frozen, pre_augmented=True, data=data)
+        aug_fn = make_train_aug_fn(cfg, data)
 
         def scan(state, images, labels, rows, lr):
             b = images.shape[1]
@@ -345,7 +381,7 @@ def make_train_step_scan(cfg: SegTrainConfig, frozen: bool, k: int):
                            for i in range(k)])
         return scan
 
-    body = _make_train_body(cfg, frozen)
+    body = _make_train_body(cfg, frozen, data=data)
 
     def scan(state, images, labels, rows, lr):
         return _stack([body(state, images[i], labels[i],
@@ -354,16 +390,20 @@ def make_train_step_scan(cfg: SegTrainConfig, frozen: bool, k: int):
     return scan
 
 
-def _rows_of(idx, i: int, batch: int, gather: bool):
+def _rows_of(idx, i: int, batch: int, gather: bool, offset: int = 0,
+             count: Optional[int] = None):
     """Call ``i``'s image rows of a resident set: ``idx`` (K, B) row
-    indices (``gather``), or (K,) batch indices read as ``[j*B, (j+1)*B)``."""
+    indices (``gather``), or (K,) batch indices read as ``[j*B, (j+1)*B)``
+    (of which a rank reads ``count`` rows from ``offset``)."""
     if gather:
         return idx[i]
-    return idx[i] * batch + torch.arange(batch, device=idx.device)
+    return idx[i] * batch + offset + torch.arange(
+        batch if count is None else count, device=idx.device)
 
 
 def make_train_step_scan_resident(cfg: SegTrainConfig, frozen: bool, k: int,
-                                  batch: int, gather: bool = False):
+                                  batch: int, gather: bool = False,
+                                  data=None):
     """``scan(state, images (N,H,W,3), labels (N,H,W), idx, rows, lr) ->
     metrics (K,)``: K steps reading their batches from a device-resident
     set (``data.resident.ResidentSegData``).  ``gather=False``: ``idx`` is
@@ -373,7 +413,7 @@ def make_train_step_scan_resident(cfg: SegTrainConfig, frozen: bool, k: int,
     if cfg.data.aug_pre_batch:
         raise ValueError("aug_pre_batch is not supported on the resident "
                          "path")
-    body = _make_train_body(cfg, frozen)
+    body = _make_train_body(cfg, frozen, data=data)
 
     def scan(state, images, labels, idx, rows, lr):
         out = []
@@ -386,11 +426,12 @@ def make_train_step_scan_resident(cfg: SegTrainConfig, frozen: bool, k: int,
     return scan
 
 
-def make_eval_step(cfg: SegTrainConfig):
+def make_eval_step(cfg: SegTrainConfig, data=None):
     """``step(state, images_u8, labels_u8, weights=None) -> {"loss",
     "f_score", "hist"}``: letterbox to the input shape, eval-mode forward,
     the loss bundle and the (nc, nc) confusion matrix of the argmax.
-    Weight-0 rows become all-ignore: no loss, no confusion cell."""
+    Weight-0 rows become all-ignore: no loss, no confusion cell.  ``data``:
+    the loss sums and the matrix span that data axis's ranks."""
     from cervical_tpu_torch.ops.warp_xla import augment_batch_einsum
     hw = tuple(cfg.data.input_shape)
     nc = cfg.data.num_classes
@@ -398,6 +439,12 @@ def make_eval_step(cfg: SegTrainConfig):
 
     @torch.no_grad()
     def step(state: TrainState, images, labels, weights=None):
+        out = _eval_body(state, images, labels, weights)
+        if data is not None:  # every real pixel of every rank, once
+            out["hist"] = P.all_sum(out["hist"], data.group)
+        return out
+
+    def _eval_body(state, images, labels, weights):
         lp = aug_ops.letterbox_params_like(images.shape[0],
                                            tuple(images.shape[1:3]), hw,
                                            device=images.device)
@@ -413,23 +460,26 @@ def make_eval_step(cfg: SegTrainConfig):
         logits = model(images.permute(0, 3, 1, 2), resize_logits=False)
         total, _, fs, preds = seg_loss_bundle_fn(
             cfg, logits.permute(0, 2, 3, 1), labels, sample_weights=weights,
-            resize_to=hw, return_preds=True)
+            resize_to=hw, return_preds=True, data=data)
         return {"loss": total, "f_score": fs,
                 "hist": confusion_matrix(labels, preds, nc)}
 
     return step
 
 
-def make_eval_step_scan_resident(cfg: SegTrainConfig, k: int, batch: int):
+def make_eval_step_scan_resident(cfg: SegTrainConfig, k: int, batch: int,
+                                 offset: int = 0,
+                                 count: Optional[int] = None, data=None):
     """``scan(state, images, labels, weights, idx (K,)) -> {"loss",
     "f_score", "hist"}``: K eval batches of a device-resident set, their
-    loss, f-score and (nc, nc) confusion matrix summed on the card."""
-    step = make_eval_step(cfg)
+    loss, f-score and (nc, nc) confusion matrix summed on the card.  A
+    data-parallel rank reads ``count`` rows of each batch from ``offset``."""
+    step = make_eval_step(cfg, data)
 
     def scan(state, images, labels, weights, idx):
         loss = fs = hist = 0
         for i in range(k):
-            r = _rows_of(idx, i, batch, False)
+            r = _rows_of(idx, i, batch, False, offset, count)
             m = step(state, images.index_select(0, r),
                      labels.index_select(0, r), weights.index_select(0, r))
             loss, fs, hist = loss + m["loss"], fs + m["f_score"], \
@@ -474,31 +524,78 @@ class EpochResult:
     seconds: float
 
 
+def _default_mesh(cfg: SegTrainConfig):
+    """``make_mesh(cfg.num_devices)`` under a process group; None in one
+    process, where ``num_devices`` may only be 1 (or unset)."""
+    if dist.is_initialized():
+        return P.make_mesh(cfg.num_devices)
+    if cfg.num_devices not in (None, 1):
+        raise ValueError(f"num_devices={cfg.num_devices} differs from the "
+                         "world size 1 (one process, no process group)")
+    return None
+
+
+def graph_rule(device: torch.device, mesh) -> bool:
+    """Whether the trainers capture their calls as CUDA graphs: on a card,
+    in one process or under NCCL (whose collectives a graph captures);
+    eager under gloo, whose collectives stage through the host."""
+    if device.type != "cuda":
+        return False
+    return mesh is None or dist.get_backend(
+        P.axis(mesh, "data").group) == "nccl"
+
+
 class SegTrainer:
-    """The epoch driver (utils_fit.py:31-198) on one card.
+    """The epoch driver (utils_fit.py:31-198) on one device, or one rank of
+    a data-parallel ``mesh`` (``parallel.make_mesh``; by default the
+    process group's, when there is one).
 
     ``device`` defaults to ``cuda``.  Seeds: ``cfg.seed`` (or ``seed``)
     draws the initial weights; the per-step augmentation parameters come
     from a host generator seeded ``seed + 1``, the ``"images"`` resident
     shuffle from one seeded ``seed + 3``; the dropouts from their own
-    generators (``build_model``).
+    generators (``build_model``).  Under a mesh every rank draws the global
+    batch's rows from these streams and keeps its own, and starts from rank
+    0's weights.
 
     On the card each K-step call (``steps_per_call``) and each resident
     eval call is a CUDA graph, captured at its first call per (phase, K,
     batch, data) and replayed after: one graph of the K steps, as a scan
-    compiles them.
+    compiles them.  Under a mesh the rule is the backend's
+    (:func:`graph_rule`): NCCL graphed, gloo eager.
     """
 
     def __init__(self, cfg: SegTrainConfig, seed: Optional[int] = None,
-                 device: str = "cuda"):
+                 device: str = "cuda", mesh=None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = P.rank_device(device)
+        self.mesh = mesh if mesh is not None else _default_mesh(cfg)
+        if self.mesh is not None and cfg.fused_middle_eval \
+                and self.mesh.size() > 1:
+            # the fused kernels run one card's whole batch
+            raise ValueError(
+                "fused_middle_eval requires a single-device mesh "
+                f"(have {self.mesh.size()}); drop the flag or set "
+                "num_devices=1")
         seed = cfg.seed if seed is None else seed
         self.generator = torch.Generator().manual_seed(seed + 1)
         self.shuffle_generator = torch.Generator().manual_seed(seed + 3)
         self.state = create_state(cfg, seed, self.device)
         self._steps: dict = {}
         self._graphs: dict = {}
+        self.graphed = graph_rule(self.device, self.mesh)
+        self.data = None
+        if self.mesh is not None:
+            self.data = P.axis(self.mesh, "data")
+            P.set_data_axis(self.state.model, self.data)
+            P.broadcast_([t.detach() for t in (*self.state.model.parameters(),
+                                               *self.state.model.buffers())])
+            if P.is_primary():
+                print(f"data parallel: {self.data.size} ranks x "
+                      f"{self.mesh.size() // self.data.size} on the model "
+                      f"axis, {dist.get_backend(self.data.group)}: K-step "
+                      "calls " + ("captured as CUDA graphs" if self.graphed
+                                  else "eager"))
 
     def _step_fn(self, key, make):
         if key not in self._steps:
@@ -506,11 +603,12 @@ class SegTrainer:
         return self._steps[key]
 
     def _train_step(self, frozen: bool):
-        return self._step_fn(frozen, lambda: make_train_step(self.cfg,
-                                                             frozen))
+        return self._step_fn(frozen, lambda: make_train_step(
+            self.cfg, frozen, self.data))
 
     def _eval_step(self):
-        return self._step_fn("eval", lambda: make_eval_step(self.cfg))
+        return self._step_fn("eval", lambda: make_eval_step(self.cfg,
+                                                            self.data))
 
     def lr_schedule(self, batch_size: int, total_epochs: int):
         init_fit, min_fit = schedules.adaptive_seg_lr(
@@ -531,9 +629,14 @@ class SegTrainer:
     def _param_rows(self, k: Optional[int], batch: int):
         """Fresh augmentation parameters for one step (``k=None``, (B, 10))
         or K steps ((K, B, 10)), drawn in step order from the host
-        generator, pinned for one non-blocking upload on the card."""
+        generator, pinned for one non-blocking upload on the card.  Under a
+        mesh ``batch`` is the rank's: it draws the global batch's rows and
+        keeps its own."""
+        ranks = 1 if self.data is None else self.data.size
         rows = torch.stack([aug_ops.params_to_rows(_sample_step_aug_params(
-            self.cfg, self.generator, batch)) for _ in range(k or 1)])
+            self.cfg, self.generator, batch * ranks))
+            for _ in range(k or 1)])
+        rows = P.rank_rows(rows, self.data, 1).contiguous()
         rows = rows if k else rows[0]
         return rows.pin_memory() if self.device.type == "cuda" else rows
 
@@ -552,7 +655,7 @@ class SegTrainer:
         On the CPU it runs eagerly; on the card it replays the graph of
         ``key`` (captured now if new)."""
         extra = () if lr is None else (self._lr_arg(lr),)
-        if self.device.type != "cuda":
+        if not self.graphed:
             return fn(self.state, *inputs, *extra)
         g = self._graphs.get(key)
         if g is None or g.state is not self.state:
@@ -567,20 +670,29 @@ class SegTrainer:
         (:func:`make_train_step_scan`); returns unsynced (K,) metrics."""
         k, b = images.shape[0], images.shape[1]
         fn = self._step_fn(("scan", frozen, k),
-                           lambda: make_train_step_scan(self.cfg, frozen, k))
+                           lambda: make_train_step_scan(self.cfg, frozen, k,
+                                                        self.data))
         return self._call_k(("scan", frozen, k, b), fn,
                             (images, labels, self._param_rows(k, b)), lr)
 
     def _resident_train(self, data, frozen: bool, idx, lr: float, gather):
         """One K-step call on the resident set ``data``; ``idx`` a host
-        int64 array, (K,) batch or (K, B) row indices."""
+        int64 array, (K,) batch or (K, B) row indices.  Under a mesh the
+        rank reads its rows of each global batch, by row index."""
         k, b = len(idx), data.batch_size
-        idx = torch.from_numpy(np.ascontiguousarray(idx, np.int64))
+        if self.data is not None:
+            idx = np.asarray(idx, np.int64)
+            if not gather:
+                idx = idx[:, None] * b + np.arange(b)
+            idx, gather = P.rank_rows(idx, self.data, 1), True
+            b = idx.shape[1]
+        idx = torch.as_tensor(np.ascontiguousarray(idx, np.int64))
         if self.device.type == "cuda":
             idx = idx.pin_memory()
         scan = self._step_fn(("scanres", frozen, k, b, gather),
                              lambda: make_train_step_scan_resident(
-                                 self.cfg, frozen, k, b, gather=gather))
+                                 self.cfg, frozen, k, b, gather=gather,
+                                 data=self.data))
 
         def fn(st, i, r, lr_):
             return scan(st, data.images, data.labels, i, r, lr_)
@@ -591,13 +703,19 @@ class SegTrainer:
     def _resident_eval(self, data, pos: int, k: int):
         """The summed metrics of resident eval batches ``pos .. pos+k-1``."""
         b = data.batch_size
+        off, cnt = 0, None
+        if self.data is not None:
+            rows = P.rank_rows(range(b), self.data)
+            off, cnt = rows.start, len(rows)
         idx = torch.arange(pos, pos + k, device=self.device)
-        scan = self._step_fn(("evalres", k, b), lambda:
-                             make_eval_step_scan_resident(self.cfg, k, b))
+        scan = self._step_fn(("evalres", k, b, off, cnt), lambda:
+                             make_eval_step_scan_resident(self.cfg, k, b,
+                                                          off, cnt,
+                                                          self.data))
 
         def fn(st, i):
             return scan(st, data.images, data.labels, data.weights, i)
-        key = ("evalres", k, b, data.images.data_ptr(),
+        key = ("evalres", k, b, off, data.images.data_ptr(),
                tuple(data.images.shape))
         return self._call_k(key, fn, (idx,))
 
@@ -611,8 +729,9 @@ class SegTrainer:
         stay unsynced (the reference's per-step ``.item()`` would stall the
         card).  Ragged validation batches are padded with weight-0 rows to
         the loader's batch size, so every eval batch has one shape and
-        counts exactly.  Resident loaders (``fit`` with ``device_resident``)
-        go to :meth:`run_epoch_resident`."""
+        counts exactly.  Under a mesh the loaders yield global batches and
+        each rank takes its rows.  Resident loaders (``fit`` with
+        ``device_resident``) go to :meth:`run_epoch_resident`."""
         from cervical_tpu_torch.data.resident import ResidentSegData
         if isinstance(train_loader, ResidentSegData):
             if not isinstance(val_loader, ResidentSegData):
@@ -626,7 +745,7 @@ class SegTrainer:
         k = max(1, self.cfg.steps_per_call)
         train = _Drain(depth)
         for images, labels in device_prefetch(train_loader, self.device,
-                                              group=k):
+                                              group=k, mesh=self.mesh):
             if images.ndim == 5:
                 train.add(self.train_steps(images, labels, frozen, lr))
             else:
@@ -637,7 +756,8 @@ class SegTrainer:
         eval_fn = self._eval_step()
         divisor = getattr(val_loader, "batch_size", 1)
         for images, labels, w in device_prefetch(
-                val_loader, self.device, with_weights=True, divisor=divisor):
+                val_loader, self.device, with_weights=True, divisor=divisor,
+                mesh=self.mesh):
             val.add(eval_fn(self.state, images, labels, w))
         val.drain(0)
         return EpochResult(train.mean("loss"), val.mean("loss"),
@@ -657,7 +777,9 @@ class SegTrainer:
         gathers its rows; "images" permutes the set on the card from
         :attr:`shuffle_generator`; "chunks" permutes the batch order from
         ``default_rng(seed * 100_003 + epoch)``; "none" keeps the order.
-        The host permutations are the JAX package's, row for row."""
+        The host permutations are the JAX package's, row for row.  Under a
+        mesh every rank holds the whole set and draws the same shuffles,
+        then reads its rows of each global batch."""
         t0 = time.time()
         cfg = self.cfg
         k = max(1, cfg.steps_per_call)
@@ -810,6 +932,8 @@ class SegTrainer:
                 f"loss={res.train_loss:.4f} val_loss={res.val_loss:.4f} "
                 f"f={res.train_f_score:.3f}/{res.val_f_score:.3f} "
                 f"({res.seconds:.1f}s)")
+            self._stop_requested = P.any_rank(self._stop_requested,
+                                              self.device)
             if self._stop_requested:
                 log(f"stopped after epoch {epoch + 1} (preemption); "
                     f"resume with init_epoch={epoch + 1} from "
@@ -821,12 +945,14 @@ class SegTrainer:
         (checkpointed as usual) — the programmatic preemption hook."""
         self._stop_requested = True
 
+
     def evaluate_miou(self, loader, num_classes: Optional[int] = None) -> Dict:
         """Accumulate the confusion matrix over ``loader`` on the card and
         summarize (EvalCallback, utils/callbacks.py:153-200).  Ragged
         batches are padded with weight-0 rows, so each real pixel counts
         once.  A resident set is read by K-batch calls that sum the matrix
-        on the card."""
+        on the card.  Under a mesh each rank counts its rows and the
+        matrices are summed over the ranks."""
         from cervical_tpu_torch.data.resident import ResidentSegData
         nc = num_classes or self.cfg.data.num_classes
         if nc != self.cfg.data.num_classes:
@@ -842,6 +968,7 @@ class SegTrainer:
         hist = torch.zeros((nc, nc), dtype=torch.int64, device=self.device)
         divisor = getattr(loader, "batch_size", 1)
         for images, labels, w in device_prefetch(
-                loader, self.device, with_weights=True, divisor=divisor):
+                loader, self.device, with_weights=True, divisor=divisor,
+                mesh=self.mesh):
             hist += eval_fn(self.state, images, labels, w)["hist"]
         return summarize_hist(hist.cpu().numpy().astype(np.int64))

@@ -17,15 +17,18 @@ fold-stacked, ``--vmap_group`` of them at a time (default 25): the same
 per-fold results and files, fold-level resume.  SIGTERM or SIGINT
 finalises the fold in flight and stops (with ``--vmap_folds``, at the next
 epoch chunk, checkpointing the group in flight); a rerun with the same
-``--save_dir`` resumes.  The multihost flags are not ported yet and raise.
+``--save_dir`` resumes.
+
+One process per device, as ``train_seg``: ``--coordinator host:port
+--num_processes N --process_id I`` (or ``--multihost true`` under
+torchrun) trains data-parallel over the N ranks, each on its rows of every
+micro-batch; only rank 0 writes.  (The tensor-parallel layout is
+``FusionTrainer(mesh=parallel.make_mesh(model_parallel=M))``.)
 """
 
 from __future__ import annotations
 
 import sys
-
-_MULTIHOST_FLAGS = ("--multihost", "--coordinator", "--num_processes",
-                    "--process_id")
 
 
 def build_config(argv):
@@ -48,11 +51,16 @@ def build_config(argv):
 
 
 def main(argv):
-    for flag in _MULTIHOST_FLAGS:
-        if any(a == flag or a.startswith(flag + "=") for a in argv):
-            raise NotImplementedError(
-                f"{flag}: multihost training is not ported yet (ROADMAP §1, "
-                "the parallel layouts); the port trains on one card")
+    import torch.distributed as dist
+    from cervical_tpu_torch import parallel
+    argv = list(argv)
+    device = "cuda"
+    for i, a in enumerate(argv):  # the backend follows --device
+        if a == "--device" and i + 1 < len(argv):
+            device = argv[i + 1]
+        elif a.startswith("--device="):
+            device = a.split("=", 1)[1]
+    argv = parallel.initialize_from_cli(argv, device=device)
     from cervical_tpu_torch.data.fusion_data import (align_to_modalities,
                                                      load_npz)
     from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
@@ -60,7 +68,8 @@ def main(argv):
 
     cfg, cohort_path, log_dir, vmap_folds, vmap_group, device = \
         build_config(argv)
-    if log_dir:  # tee stdout to log_dir/<timestamp>.log (util.py:50-67)
+    if log_dir and parallel.is_primary():
+        # tee stdout to log_dir/<timestamp>.log (util.py:50-67)
         sys.stdout = Logger(log_dir, stream=sys.stdout)
     show_config(**{k: getattr(cfg, k) for k in
                    ("modalities", "epochs", "lr", "batch_size", "kfold",
@@ -75,7 +84,8 @@ def main(argv):
                          "training needs diagnosis labels")
     ds = align_to_modalities(ds, cfg.modalities)
 
-    trainer = FusionTrainer(cfg, device=device)
+    mesh = parallel.make_mesh() if dist.is_initialized() else None
+    trainer = FusionTrainer(cfg, device=device, mesh=mesh)
     result = trainer.cross_validate(ds, save_dir=cfg.save_dir,
                                     vmap_folds=vmap_folds,
                                     vmap_group=vmap_group)

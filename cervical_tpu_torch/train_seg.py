@@ -11,16 +11,27 @@ e.g.
 ``--key value`` pairs override the config (``--data.input_shape '[64,64]'``).
 ``--device`` defaults to ``cuda``; ``--device cpu`` runs the kernels' plain
 versions.  SIGTERM or SIGINT stops after the epoch in flight, which is
-checkpointed; resume with ``--init_epoch``.  The JAX CLI's multihost flags
-are not ported.
+checkpointed; resume with ``--init_epoch``.
+
+Data parallelism, one process per device (``parallel/mesh.py``; each rank
+trains on its rows of every global batch, only rank 0 writes files):
+
+    # two processes on the CPU (gloo), in two shells or with &
+    python -m cervical_tpu_torch.train_seg --device cpu \
+        --coordinator localhost:29500 --num_processes 2 --process_id 0 ...
+    python -m cervical_tpu_torch.train_seg --device cpu \
+        --coordinator localhost:29500 --num_processes 2 --process_id 1 ...
+    # one process per card (NCCL), through torchrun
+    torchrun --nproc_per_node 2 -m cervical_tpu_torch.train_seg \
+        --multihost true ...
+
+``--coordinator`` also takes a ``file://`` or ``tcp://`` URL.  Each flag
+takes ``--flag v`` or ``--flag=v``; an incomplete explicit set is refused.
 """
 
 from __future__ import annotations
 
 import sys
-
-_MULTIHOST_FLAGS = ("--multihost", "--coordinator", "--num_processes",
-                    "--process_id")
 
 
 def _pop(argv, flag):
@@ -41,12 +52,9 @@ def _pop(argv, flag):
 
 def main(argv):
     argv = list(argv)
-    for flag in _MULTIHOST_FLAGS:
-        if any(a == flag or a.startswith(flag + "=") for a in argv):
-            raise NotImplementedError(
-                f"{flag}: multihost training is not ported yet (ROADMAP §1 "
-                "item 8, the parallel layouts); the port trains on one card")
     device = _pop(argv, "--device") or "cuda"
+    from cervical_tpu_torch.parallel import initialize_from_cli
+    argv = initialize_from_cli(argv, device=device)  # before any CUDA use
     cfg_path = _pop(argv, "--config")
 
     from cervical_tpu_torch.config import (SegTrainConfig, load_config,

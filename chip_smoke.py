@@ -150,7 +150,22 @@
    (16, 512, 512, 3) on the card against the CPU (each slot's max
    difference and count printed, held to 1e-3), its images/s, and
    ``write_multimodal_augmented`` over 32 PNGs: 160 files.
-12. Prints the seconds per phase, one ``{"kernels": [...]}`` line (six
+12. Drives the parallel layouts (``parallel`` phase, last): (a) NCCL at
+   world 1 — the 8-step seg graph call (xception 512², batch 8, the kernel
+   augmentation) through the data-parallel path, bit for bit against the
+   same call without a process group, K1-K3 counted, ms/step of both in
+   turns; (b) two gloo ranks sharing the card (this script as two child
+   processes): one eager data-parallel step in f32 on 4 of the 8 images
+   each, the ranks' params equal and the step within a stated tolerance of
+   the one-process eager step on the 8 — loss, Adam's first moments,
+   update signs, running stats — (run twice, for the card's own spread),
+   a ragged eval counting every pixel; (c) in the same children, two
+   ``FusionTrainer.train_epoch`` epochs of one step over 8 patients at
+   1,024 / 512 with the model split over both ranks, against the
+   replicated epochs (loss rtol 1e-5, then 1e-3); (d) ``middle_flow_pipeline`` at (8, 728, 32, 32) bf16,
+   16 blocks, 4 stages on 4 streams, 4 microbatches, equal to the
+   sequential blocks per microbatch, both timed.
+13. Prints the seconds per phase, one ``{"kernels": [...]}`` line (six
    kernels), then as the last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, if any check fails, if there is no
@@ -2688,6 +2703,394 @@ def prepare_phase(torch, W, card, defaults=None, n_pairs=64, size=512,
     return res
 
 
+def _file_store(tmp, name):
+    """A ``file://`` rendezvous in ``tmp``: no TCP port to collide on."""
+    return "file://" + os.path.join(tmp, name)
+
+
+def adam_moments(tr):
+    """A seg trainer's Adam first moments by param name, on the host."""
+    names = {id(p): n for n, p in tr.state.model.named_parameters()}
+    return {names[id(p)]: st["exp_avg"].detach().cpu()
+            for opt in tr.state.opt_state.values()
+            for p, st in opt.state.items()}
+
+
+def fusion_cohort(spec):
+    """The (c) cohort from the phase's ``spec.npz``."""
+    return {"feats": {k[6:]: spec[k] for k in spec
+                      if k.startswith("feats_")},
+            "labels": spec["f_labels"], "present": spec["f_present"]}
+
+
+def parallel_rank(rank, workdir):
+    """One of the two gloo ranks of the ``parallel`` phase, both on the
+    phase's device (``python3 chip_smoke.py --parallel-rank R --workdir
+    D``): (b) one eager data-parallel step of the default seg config with
+    the kernel augmentation on this rank's half of the batch, and a ragged
+    eval pass; (c) two ``FusionTrainer.train_epoch`` epochs over a cohort
+    of one batch at the reference widths, the model split over both ranks.
+    Writes ``out{rank}.pt`` to ``workdir``."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from cervical_tpu_torch import parallel as PP
+    from cervical_tpu_torch.config import FusionTrainConfig, SegTrainConfig
+    from cervical_tpu_torch.data.voc import ArraySegDataset, BatchLoader
+    from cervical_tpu_torch.ops import warp as W
+    from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = dict(np.load(os.path.join(workdir, "spec.npz")))
+    dev = torch.device(str(spec["device"]))
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    PP.initialize_multihost(_file_store(workdir, "store"), 2, rank,
+                            backend="gloo", device=dev)
+    out = {}
+    cfg = SegTrainConfig()
+    cfg.data.aug_backend = "pallas"
+    cfg.data.input_shape = tuple(int(v) for v in spec["hw"])
+    cfg.dtype = str(spec["seg_dtype"])
+    tr = SegTrainer(cfg, device=dev, mesh=PP.make_mesh())
+    xl, yl = PP.shard_batch((spec["images"], spec["labels"]), tr.mesh,
+                            device=dev)
+    W.reset_launches()
+    sync()
+    t0 = time.perf_counter()
+    out["seg_loss"] = float(tr.train_step(xl, yl, False,
+                                          float(spec["lr"]))["loss"])
+    sync()
+    out["seg_step_s"] = time.perf_counter() - t0
+    out["seg_launches"] = dict(W.LAUNCHES)
+    out["seg_state"] = {k: v.cpu() for k, v in
+                        tr.state.model.state_dict().items()}
+    out["seg_exp_avg"] = adam_moments(tr)
+    val = ArraySegDataset(spec["val_images"], spec["val_labels"])
+    loader = BatchLoader(val, 8, shuffle=False, drop_last=False)
+    out["eval_pixels"] = int(tr.evaluate_miou(loader)["hist"].sum())
+    del tr
+
+    fcfg = FusionTrainConfig(dtype="float32", epoch0_no_step=False,
+                             in_features=int(spec["f_in"]),
+                             hidden=int(spec["f_hidden"]))
+    ftr = FusionTrainer(fcfg, device=dev, mesh=PP.make_mesh(model_parallel=2))
+    st = ftr.init_state()
+    out["tp_sharded"] = len(st.model.tp_shards)
+    out["tp_losses"], out["tp_step_s"] = [], []
+    for e in range(2):
+        sync()
+        t0 = time.perf_counter()
+        rep = ftr.train_epoch(st, fusion_cohort(spec), e, 1e-3)
+        out["tp_losses"].append(rep["loss"])
+        out["tp_step_s"].append(time.perf_counter() - t0)
+    torch.save(out, os.path.join(workdir, f"out{rank}.pt"))
+    PP.barrier("done")
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def nccl_world1(torch, W, cfg, images, labels, lr, tmp, dev):
+    """(a): the K-step seg call through the data-parallel path of a
+    one-rank NCCL group, against the same call without a process group:
+    bit for bit, K1-K3 counted, both timed in turns."""
+    import gc
+    import torch.distributed as dist
+    from cervical_tpu_torch import parallel as PP
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+
+    k = images.shape[0]
+    xs = torch.from_numpy(images).to(dev)
+    ys = torch.from_numpy(labels).to(dev)
+    plain = SegTrainer(cfg, device=dev)
+    PP.initialize_multihost(_file_store(tmp, "nccl"), 1, 0, backend="nccl",
+                            device=dev)
+    try:
+        ddp = SegTrainer(cfg, device=dev, mesh=PP.make_mesh())
+        check(ddp.graphed and dist.get_backend() == "nccl",
+              "the NCCL trainer is not graphed")
+        la = plain.train_steps(xs, ys, False, lr)["loss"]
+        W.reset_launches()
+        lb = ddp.train_steps(xs, ys, False, lr)["loss"]
+        torch.cuda.synchronize()
+        launches = dict(W.LAUNCHES)
+        model_eq, adam_eq = states_equal(torch, plain.state, ddp.state)
+        check(model_eq and adam_eq and torch.equal(la, lb),
+              f"NCCL world-1 K-step call differs from the one-process call "
+              f"(model {model_eq}, adam {adam_eq}, losses {la.tolist()} vs "
+              f"{lb.tolist()})")
+        for name in TRAIN_KERNELS:
+            check(launches[name] == k, f"{name} launched {launches[name]} "
+                  f"times in the {k}-step data-parallel call")
+        ms = {"plain": [], "nccl": []}
+        for tr, key in ((plain, "plain"), (ddp, "nccl"), (ddp, "nccl"),
+                        (plain, "plain")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                m = tr.train_steps(xs, ys, False, lr)
+            torch.cuda.synchronize()
+            ms[key].append(1e3 * (time.perf_counter() - t0) / (3 * k))
+        check(math.isfinite(float(m["loss"][-1])), "non-finite loss")
+    finally:
+        dist.destroy_process_group()
+    h, w = images.shape[2:4]
+    print(f"parallel (a) NCCL world 1, xception {h}x{w} batch "
+          f"{images.shape[1]}, {k}-step graph calls: bit-identical to the "
+          f"one-process call; ms/step one-process {ms['plain']}, "
+          f"data-parallel {ms['nccl']}; launches {launches}")
+    del plain, ddp, xs, ys
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"equal": True, "launches": launches,
+            "ms_per_step_plain": ms["plain"], "ms_per_step_nccl": ms["nccl"]}
+
+
+def gloo_ranks(torch, cfg, fcfg, images, labels, val, lr, tmp, dev):
+    """(b) and (c): two gloo ranks sharing the device, as child processes;
+    their results held against the one-process seg step and the replicated
+    fusion epochs."""
+    import numpy as np
+    from cervical_tpu_torch.data.fusion_data import make_synthetic_fusion
+    from cervical_tpu_torch.train.fusion_trainer import FusionTrainer
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+
+    fds = make_synthetic_fusion(num_patients=8, feature_dim=fcfg.in_features,
+                                seed=5)
+    feats = {m: np.asarray(v, np.float32) for m, v in fds["feats"].items()}
+    np.savez(os.path.join(tmp, "spec.npz"), images=images, labels=labels,
+             val_images=val[0], val_labels=val[1], lr=lr, device=str(dev),
+             seg_dtype=cfg.dtype,
+             hw=np.asarray(cfg.data.input_shape),
+             f_in=fcfg.in_features, f_hidden=fcfg.hidden,
+             f_labels=np.asarray(fds["labels"]),
+             f_present=np.asarray(fds["present"]),
+             **{f"feats_{m}": v for m, v in feats.items()})
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(2):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--parallel-rank", str(r), "--workdir", tmp], cwd=HERE,
+                text=True, stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+        logs = [p.communicate(timeout=600)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"gloo rank {r} exited {p.returncode}:\n"
+              f"{log[-3000:]}")
+    outs = [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False)
+            for r in range(2)]
+    s0, s1 = outs[0]["seg_state"], outs[1]["seg_state"]
+    check(all(torch.equal(v, s1[n]) for n, v in s0.items()),
+          "the two gloo ranks hold different params after the step")
+    check(outs[0]["seg_loss"] == outs[1]["seg_loss"],
+          "the two gloo ranks report different losses")
+
+    # (b) against the one-process eager step on the whole batch, in f32
+    # (in bf16 the two BatchNorm formulations' roundings flip the sign of
+    # Adam's first step on 13-38% of elements, measured on the CPU): loss
+    # to 1e-4 relative; Adam's first moments (0.1 x the gradients) to 5%
+    # global relative L2 and their global norm to 1% of the one-process
+    # step's; at most 1% of the updated elements moving the other way; the
+    # running stats' updates to 1% global relative L2.  A gradient off by a
+    # constant factor c (a missing or doubled divide by the rank count)
+    # scales the moments' norm by c and moves them by |c - 1|: 0.5 and
+    # more.  Rounding alone (two BatchNorm formulations, reduction orders)
+    # moved them by 1.2% on the CPU at 64² and their norm by far less;
+    # the one-process step run twice, printed beside, shows the card's own
+    # spread.  (Adam's first step moves every element by about lr whatever
+    # the gradient's scale, so the params alone cannot see the scale.)
+    def one_process():
+        ref = SegTrainer(cfg, device=dev)
+        before = {n: v.detach().cpu().clone()
+                  for n, v in ref.state.model.state_dict().items()}
+        loss = float(ref.train_step(torch.from_numpy(images).to(dev),
+                                    torch.from_numpy(labels).to(dev), False,
+                                    lr)["loss"])
+        names = [n for n, _ in ref.state.model.named_parameters()]
+        return loss, before, {n: v.cpu() for n, v in
+                              ref.state.model.state_dict().items()}, names, \
+            adam_moments(ref)
+
+    def compare(sa, sb, ma, mb, before, names):
+        """(share of updated elements moving the other way, running-stat
+        updates' relative L2, first moments' relative L2, the ratio of the
+        first moments' norms) of two steps."""
+        dg = torch.cat([(sa[n] - before[n]).double().flatten()
+                        for n in names])
+        dw = torch.cat([(sb[n] - before[n]).double().flatten()
+                        for n in names])
+        moved = dw != 0
+        flips = float(((torch.sign(dg) != torch.sign(dw)) & moved).sum()
+                      / moved.sum().clamp_min(1))
+        run = [n for n in sb if "running" in n]
+        ua = torch.cat([(sa[n] - before[n]).double().flatten() for n in run])
+        ub = torch.cat([(sb[n] - before[n]).double().flatten() for n in run])
+        xa = torch.cat([ma[n].double().flatten() for n in names])
+        xb = torch.cat([mb[n].double().flatten() for n in names])
+        return (flips, float((ua - ub).norm() / ub.norm().clamp_min(1e-30)),
+                float((xa - xb).norm() / xb.norm().clamp_min(1e-30)),
+                float(xa.norm() / xb.norm().clamp_min(1e-30)))
+
+    rl, before, rsd, names, rm = one_process()
+    rl2, _, rsd2, _, rm2 = one_process()
+    floor = compare(rsd2, rsd, rm2, rm, before, names)
+    flips, stat, mom, scale = compare(s0, rsd, outs[0]["seg_exp_avg"], rm,
+                                      before, names)
+    loss_rel = abs(outs[0]["seg_loss"] - rl) / abs(rl)
+    print(f"  one-process step twice: losses {rl} / {rl2}; signs flipped "
+          f"{floor[0]:.4f}, running stats {floor[1]:.3g}, first moments "
+          f"{floor[2]:.3g}, their norms' ratio {floor[3]!r}")
+    check(loss_rel <= 1e-4 and mom <= 0.05 and abs(scale - 1) <= 0.01
+          and flips <= 0.01 and stat <= 0.01,
+          f"gloo 2-rank step against the one-process step: loss rel "
+          f"{loss_rel:.3g}, first moments {mom:.3g}, their norms' ratio "
+          f"{scale!r}, update signs flipped {flips:.4f}, running-stat "
+          f"updates {stat:.3g}")
+    h, w = cfg.data.input_shape
+    pixels = len(val[0]) * h * w
+    for o in outs:
+        check(o["eval_pixels"] == pixels, f"ragged eval counted "
+              f"{o['eval_pixels']} pixels, expected {pixels}")
+        for name in TRAIN_KERNELS:  # (the CPU takes the plain versions)
+            check(dev.type != "cuda" or o["seg_launches"][name] == 1,
+                  f"{name} launched {o['seg_launches'][name]} times in a "
+                  "rank's step")
+    b = {"loss_rel": loss_rel, "exp_avg_rel_l2": mom,
+         "exp_avg_norm_ratio": scale, "update_sign_flips": flips,
+         "one_process_twice": floor, "running_stat_updates_rel_l2": stat,
+         "step_s": [o["seg_step_s"] for o in outs],
+         "ranks_seconds": ranks_s, "eval_pixels": pixels}
+    print(f"parallel (b) gloo, 2 ranks on one device: params equal across "
+          f"ranks; against the one-process step loss rel {loss_rel:.3g}, "
+          f"first moments {mom:.3g} (norms' ratio {scale!r}), update signs "
+          f"flipped {flips:.4f}, "
+          f"running-stat updates {stat:.3g}; eager step "
+          f"{[round(o['seg_step_s'], 3) for o in outs]} s; ragged eval "
+          f"{pixels} pixels; both ranks in {ranks_s:.1f} s")
+
+    # (c) the tensor-parallel epochs (one step each) against the replicated
+    # ones: the same seeds, so the same weights, rows, MAE and dropout masks
+    ftr = FusionTrainer(fcfg, device=dev)
+    st = ftr.init_state()
+    cohort = {"feats": feats, "labels": np.asarray(fds["labels"]),
+              "present": np.asarray(fds["present"])}
+    rep = [ftr.train_epoch(st, cohort, e, 1e-3)["loss"] for e in range(2)]
+    tp = outs[0]["tp_losses"]
+    rel = [abs(x - y) / abs(y) for x, y in zip(tp, rep)]
+    check(tp == outs[1]["tp_losses"],
+          "the two tensor-parallel ranks report different losses")
+    check(rel[0] <= 1e-5 and rel[1] <= 1e-3 and outs[0]["tp_sharded"] >= 40,
+          f"tensor-parallel losses {tp} against replicated {rep} (rel {rel});"
+          f" {outs[0]['tp_sharded']} params sharded")
+    c = {"tp_losses": tp, "replicated_losses": rep, "rel": rel,
+         "sharded_params": outs[0]["tp_sharded"],
+         "tp_step_s": outs[0]["tp_step_s"]}
+    print(f"parallel (c) FusionMAE {fcfg.in_features}/{fcfg.hidden}, model=2 "
+          f"under gloo, train_epoch over 8 patients: losses {tp} against "
+          f"replicated {rep} (rel {rel}); {outs[0]['tp_sharded']} params "
+          f"sharded; epochs "
+          f"{[round(x, 3) for x in outs[0]['tp_step_s']]} s")
+    return b, c
+
+
+def pipeline_check(torch, dev, shape=(8, 728, 32, 32), timing=True):
+    """(d): ``middle_flow_pipeline`` at 4 stages on 4 streams of ``dev``,
+    4 microbatches, against the sequential blocks."""
+    from cervical_tpu_torch import parallel as PP
+    from cervical_tpu_torch.models.backbones.xception import XceptionBackbone
+
+    g = torch.Generator().manual_seed(41)
+    bb = XceptionBackbone(compute_dtype=torch.bfloat16)
+    bb.load_state_dict(random_state(torch, bb, g))
+    bb = bb.to(dev).eval()
+    x = (torch.randn(*shape, generator=g).to(dev, torch.bfloat16)
+         .contiguous(memory_format=torch.channels_last))
+    stages = [dev] * 4
+
+    def sequential(z):
+        for i in range(4, 20):
+            z = getattr(bb, f"block{i}")(z)[0]
+        return z
+
+    with torch.no_grad():
+        out = PP.middle_flow_pipeline(bb, x, stages, microbatches=4)
+        per_mb = torch.cat([sequential(c) for c in x.chunk(4)])
+        full = sequential(x)
+        check(torch.equal(out, per_mb), "the pipeline differs from the "
+              "sequential blocks on the same microbatches")
+        full_diff = float((out.float() - full.float()).abs().max())
+        pipe_ms = seq_ms = None
+        if timing:
+            pipe_ms = cuda_ms(torch, lambda: PP.middle_flow_pipeline(
+                bb, x, stages, microbatches=4), 5, queued=False)
+            seq_ms = cuda_ms(torch, lambda: sequential(x), 5, queued=False)
+    print(f"parallel (d) middle_flow_pipeline {tuple(shape)} bf16 x 16 "
+          f"blocks, S=4 streams, M=4: equal to the sequential blocks per "
+          f"microbatch, max |diff| {full_diff:.3g} against the full batch; "
+          f"{pipe_ms} ms against sequential {seq_ms} ms")
+    return {"equal_per_microbatch": True, "max_abs_vs_full_batch": full_diff,
+            "pipeline_ms": pipe_ms, "sequential_ms": seq_ms}
+
+
+def parallel_phase(torch, W, card, input_shape=(512, 512), k=8,
+                   device="cuda", parts="abcd", fusion_widths=None,
+                   pipe_shape=(8, 728, 32, 32), timing=True):
+    """The parallel layouts; see the module docstring.  (``device="cpu"``,
+    ``parts="bcd"``, small shapes and ``timing=False`` rehearse (b)-(d) on
+    the CPU.)"""
+    import shutil
+    import tempfile
+    import numpy as np
+    from cervical_tpu_torch.config import FusionTrainConfig, SegTrainConfig
+    from cervical_tpu_torch.train import schedules
+
+    res = {"card": card}
+    dev = torch.device("cuda:0" if device == "cuda" else device)
+    h, w = input_shape
+    rng = np.random.default_rng(31)
+    images = rng.integers(0, 256, (k, 8, h, w, 3)).astype(np.uint8)
+    labels = rng.integers(0, 5, (k, 8, h, w)).astype(np.uint8)
+    val = (rng.integers(0, 256, (12, h, w, 3)).astype(np.uint8),
+           rng.integers(0, 5, (12, h, w)).astype(np.uint8))
+    cfg = SegTrainConfig()
+    cfg.data.aug_backend = "pallas"
+    cfg.data.input_shape = input_shape
+    init, low = schedules.adaptive_seg_lr(
+        cfg.init_lr, cfg.init_lr * cfg.min_lr_ratio, 8,
+        backbone=cfg.backbone, optimizer_type=cfg.optimizer_type)
+    lr = schedules.get_lr_scheduler(cfg.lr_decay_type, init, low,
+                                    cfg.unfreeze_epoch)(0)
+    fcfg = FusionTrainConfig(dtype="float32", epoch0_no_step=False,
+                             **(fusion_widths or {}))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        if "a" in parts:
+            res["a"] = nccl_world1(torch, W, cfg, images, labels, lr, tmp,
+                                   dev)
+        if "b" in parts or "c" in parts:
+            f32 = dataclass_replace(cfg, dtype="float32")
+            res["b"], res["c"] = gloo_ranks(torch, f32, fcfg, images[0],
+                                            labels[0], val, lr, tmp, dev)
+        if "d" in parts:
+            res["d"] = pipeline_check(torch, dev, pipe_shape, timing)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("parallel " + json.dumps(res))
+    return res
+
+
 def main():
     if not os.path.isdir(os.path.join(HERE, "cervical_tpu_torch")):
         print("chip_smoke.py: the cervical_tpu_torch package is not beside "
@@ -2747,6 +3150,7 @@ def main():
           torch.Generator().manual_seed(14), card, served)
     timed("featurize", featurize_phase, torch, card)
     prepare = timed("prepare", prepare_phase, torch, W, card, defaults)
+    par = timed("parallel", parallel_phase, torch, W, card)
     path_launches["warp_photo_images"] = warp["warp_photo_images"]["launches"]
     print("seconds per phase " + json.dumps(seconds))
 
@@ -2775,7 +3179,8 @@ def main():
             "library": NO_LIBRARY, "timed_shape": r["timed"],
             **({"launches_prepare": {
                 "planar_call": prepare["planar"]["launches"][name],
-                "epoch": prepare["epoch"]["launches"][name]}}
+                "epoch": prepare["epoch"]["launches"][name]},
+                "launches_parallel": par["a"]["launches"][name]}
                if name in TRAIN_KERNELS else {}),
             **{k: r[k] for k in ("ms_none_rotated", "ms_all_rotated",
                                  "ms_blur_all", "ms_blur_none", "differing",
@@ -2791,6 +3196,10 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--parallel-rank" in sys.argv:  # a child of the parallel phase
+        a = sys.argv
+        sys.exit(parallel_rank(int(a[a.index("--parallel-rank") + 1]),
+                               a[a.index("--workdir") + 1]))
     try:
         sys.exit(main())
     except SmokeFailure as e:

@@ -229,10 +229,28 @@ def test_train_seg_cli_defaults_to_cuda_and_refuses_multihost(voc_root,
     train_seg.main(["--data.dataset_path", voc_root, "--unfreeze_epoch", "3"])
     assert made[0][1] == "cuda" and made[0][0].unfreeze_epoch == 3
     assert made[1] == (16, 2)
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
+    # an incomplete launch is refused, as the JAX CLI refuses it; so is
+    # --multihost outside torchrun's environment
+    for argv in (["--coordinator=localhost:1234"],
+                 ["--num_processes", "2", "--process_id", "0"]):
+        with pytest.raises(SystemExit, match="needs ALL of"):
+            train_seg.main(argv + ["--data.dataset_path", voc_root])
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match="torchrun"):
         train_seg.main(["--multihost", "true"])
-    with pytest.raises(NotImplementedError, match="§1 item 8"):
-        train_seg.main(["--coordinator=localhost:1234"])
+    # a complete one joins the group before the trainer is built, with the
+    # backend of --device, and passes the rest on
+    from cervical_tpu_torch.parallel import mesh as PM
+    joined = []
+    monkeypatch.setattr(PM, "initialize_multihost",
+                        lambda *a, **k: joined.append((a, k)))
+    made.clear()
+    train_seg.main(["--device", "cpu", "--coordinator", "localhost:1234",
+                    "--num_processes=2", "--process_id", "1",
+                    "--data.dataset_path", voc_root, "--unfreeze_epoch", "4"])
+    assert joined == [(("localhost:1234", 2, 1), {"device": "cpu"})]
+    assert made[0][1] == "cpu" and made[0][0].unfreeze_epoch == 4
 
 
 def test_train_seg_cli_runs_one_epoch_on_cpu(voc_root, tmp_path):

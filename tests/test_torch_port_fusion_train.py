@@ -153,7 +153,10 @@ def test_config_and_arity_defaults_match_jax():
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh that is no ``DeviceMesh`` (``parallel.make_mesh``'s) and an
+    unknown dtype raise; the tensor-parallel mesh itself is held against
+    JAX's in ``test_torch_port_parallel_fusion.py``."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PT.FusionTrainer(FusionTrainConfig(), device="cpu", mesh=object())
     with pytest.raises(ValueError, match="unknown dtype"):
         PT.FusionTrainer(FusionTrainConfig(dtype="float16"), device="cpu")

@@ -173,3 +173,32 @@ def test_data_preparation_modules_import_alone():
                          env=_clean_env(), capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_parallel_modules_import_alone():
+    """The parallel layer (``cervical_tpu_torch.parallel``: the mesh, the
+    tensor-parallel layout, the pipeline) imports without JAX, joins no
+    process group at import, exports the JAX package's names, and the
+    trainers take a mesh."""
+    code = (
+        "import sys, inspect\n"
+        "import torch.distributed as dist\n"
+        "import cervical_tpu_torch.parallel as P, cervical_tpu_torch.parallel.mesh,"
+        " cervical_tpu_torch.parallel.tp, cervical_tpu_torch.parallel.pipeline\n"
+        "from cervical_tpu_torch.train.seg_trainer import SegTrainer\n"
+        "from cervical_tpu_torch.train.fusion_trainer import FusionTrainer\n"
+        "assert not dist.is_initialized()\n"
+        "names = ('make_mesh', 'data_sharding', 'replicated_sharding',"
+        " 'shard_batch', 'initialize_multihost', 'local_batch_slice',"
+        " 'barrier', 'initialize_from_cli', 'is_primary',"
+        " 'fusion_param_specs', 'place_params', 'pipeline_apply',"
+        " 'stack_block_params', 'middle_flow_pipeline')\n"
+        "assert all(callable(getattr(P, n)) for n in names)\n"
+        "for cls in (SegTrainer, FusionTrainer):\n"
+        "    assert inspect.signature(cls).parameters['mesh'].default is None\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "sys.exit(1 if bad else 0)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=_clean_env(), capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stdout + out.stderr

@@ -120,3 +120,36 @@ def fusion_pair(mods, seed=0, in_features=FUSION_IN, hidden=FUSION_HIDDEN,
     pm = FusionMAE(tuple(mods), in_features, hidden, mix=mix).eval()
     pm.load_state_dict(fusion_from_flax(params), strict=True)
     return jm, params, pm
+
+
+def run_ranks(task, world, workdir, spec, timeout=240):
+    """Run ``task`` of ``tests/_torch_port_parallel_worker.py`` in ``world``
+    gloo processes joined by a ``FileStore`` in ``workdir`` (no TCP port:
+    the Tier-1 workers run side by side); returns each rank's output.  A
+    rank that exits non-zero fails the caller with its log."""
+    import os
+    import subprocess
+    import sys
+
+    os.makedirs(workdir, exist_ok=True)
+    torch.save(spec, os.path.join(workdir, "spec.pt"))
+    worker = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "_torch_port_parallel_worker.py")
+    store = "file://" + os.path.join(workdir, "store")
+    procs = [subprocess.Popen([sys.executable, worker, task, str(r),
+                               str(world), store, str(workdir)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=timeout)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n" \
+            + log[-4000:]
+    return [torch.load(os.path.join(workdir, f"out{r}.pt"),
+                       weights_only=False) for r in range(world)]
