@@ -58,6 +58,35 @@
 // steps add nothing; the epilogue skips rows past M and columns past N (N
 // is a multiple of 8, so a column pair is wholly in or out).
 //
+// In f32 (compute_dtype=float32: the folded weights, zb and the block
+// output are f32, and zb is not rounded) the same function runs on two
+// more instances:
+//   * mf_dw_stencil_f32: the stencil above, instantiated for f32 taps and
+//     an f32 zb (two 16-byte loads per tap, two 16-byte stores), the same
+//     operations in the same order without FMA: bit-identical to the plain
+//     version.  It is bound by its bytes (f32 z in, f32 zb out: 2 x 23.9
+//     MB at os16, 0.0142 ms at 3.35 TB/s).
+//   * mf_pw_gemm_f32: zb @ W + c2 (FINAL: + relu(skip_src)) in full f32, a
+//     SIMT FFMA GEMM.  TF32 keeps 10 bits of mantissa, so wgmma would not
+//     compute the f32 product the function asks for; the f32 product is
+//     bound by operations (8.68 GFLOP per product at os16, 0.130 ms at 67
+//     TFLOP/s fp32; 417 GFLOP, ~6.2 ms, for the 16 blocks), so the design
+//     keeps the FFMA units fed from registers: 128 x 128 output tiles, 256
+//     threads of 8 x 8 accumulators each (rows and columns t*4.. and 64 +
+//     t*4..), so each k step is 4 16-byte shared loads for 64 FFMA.  Both
+//     operands are K-major and the micro-tiles want m- and n-contiguous
+//     rows, so each k-tile (BK 8) is fetched into registers one k-tile
+//     ahead and stored transposed into the other of two shared buffers
+//     (cp.async cannot transpose); rows padded to 132 floats keep those
+//     stores free of bank conflicts.  K is a multiple of 8, so there is no
+//     ragged k-tile; A's rows past M and W^T's past N read as zeros, and
+//     the epilogue skips them (N is a multiple of 8, so a 4-column store is
+//     wholly in or out).  Each k step adds its product with one FFMA, in k
+//     order: the sum can differ from cuBLAS's by its order only (on the
+//     H100 at the main path's shape it does not: PERF.md).  Its two
+//     buffers take 16,896 bytes, under the 48 KB a launch may use without
+//     opting in.
+//
 // The tensor maps are encoded on the host per call with
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime's
 // cudaGetDriverEntryPoint (no -lcuda), and passed as __grid_constant__
@@ -95,6 +124,20 @@ constexpr int GA_HALF = 64 * BK * 2;        // one consumer's 64 rows of A
 constexpr int GA_TILE = GBM * BK * 2;       // 32 KB
 constexpr int GB_TILE = GBN * BK * 2;       // 23 KB, a multiple of 1024
 constexpr int G_STAGE = GA_TILE + GB_TILE;  // 56,320 bytes
+// mf_pw_gemm_f32: FBM x FBN output tiles, k-tiles of FBK, FTHREADS threads
+// as 16 x 16 of 8 x 8 accumulators; two shared buffers, each A's and W^T's
+// k-tile transposed, rows padded to FLD floats
+constexpr int FBM = 128;
+constexpr int FBN = 128;
+constexpr int FBK = 8;
+constexpr int FTHREADS = 256;
+constexpr int FLD = FBM + 4;
+constexpr int F_STAGE = 2 * FBK * FLD;                     // floats
+constexpr int F_SMEM = 2 * F_STAGE * (int)sizeof(float);  // 16,896 bytes
+static_assert(FBM == FBN && FBM == 128 && FTHREADS == 256,
+              "the copy and the micro-tiles assume 128 x 128 tiles of 256 "
+              "threads");
+static_assert(F_SMEM <= 48 * 1024, "above 48 KB the launch must opt in");
 
 // Eight consecutive channels as f32 (16-byte loads; c is a multiple of 8).
 __device__ __forceinline__ void load8(const float* p, float v[8]) {
@@ -131,6 +174,31 @@ __device__ __forceinline__ void load_tap(const bf16* p, float v[8]) {
   }
 }
 
+// The f32 taps: two 16-byte loads, volatile for the same reason.
+__device__ __forceinline__ void load_tap(const float* p, float v[8]) {
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+               : "l"(p));
+  asm volatile("ld.global.nc.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v[4]), "=f"(v[5]), "=f"(v[6]), "=f"(v[7])
+               : "l"(p + 4));
+}
+
+// Eight consecutive channels of zb: rounded to bf16 (one 16-byte store) or
+// f32 as they are (two).
+__device__ __forceinline__ void store8(bf16* p, const float v[8]) {
+  uint4 out;
+  __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    o[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
+  *reinterpret_cast<uint4*>(p) = out;
+}
+__device__ __forceinline__ void store8(float* p, const float v[8]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  *reinterpret_cast<float4*>(p + 4) = make_float4(v[4], v[5], v[6], v[7]);
+}
+
 // relu(z[n, h, w + (dx - 1) d, c:c+8]) for dx = 0, 1, 2; zeros outside the
 // image (the zero padding).
 template <typename T>
@@ -153,8 +221,9 @@ __device__ __forceinline__ void load_row(const T* __restrict__ z, float v[3][8],
 
 // acc += the three terms of tap row ky (dy = ky - 1) for one output, in the
 // plain version's order (dx = -1, 0, 1), each rounded: no FMA.
+template <typename TC>
 __device__ __forceinline__ void add_taps(float acc[8], const float v[3][8],
-                                         const bf16* __restrict__ wdw, int ky,
+                                         const TC* __restrict__ wdw, int ky,
                                          int C, int c) {
 #pragma unroll
   for (int dx = 0; dx < 3; ++dx) {
@@ -166,8 +235,10 @@ __device__ __forceinline__ void add_taps(float acc[8], const float v[3][8],
   }
 }
 
-// zb[n, h, w, c:c+8] = bf16((sum_t relu(z[n, h+dy*d, w+dx*d, c]) * wdw[t, c])
+// zb[n, h, w, c:c+8] = TC((sum_t relu(z[n, h+dy*d, w+dx*d, c]) * wdw[t, c])
 // * s1[c] + c1[c]), t = (dy+1)*3 + (dx+1), summed from 0 in t's order.
+// TC, the compute type, is the taps' and zb's: bf16 (z bf16 or f32) or
+// f32 (z f32).
 // blockIdx.x: channel tile + ST_CX-chunk column tile; blockIdx.y: residue r
 // of h mod d + segment of `rows` steps; blockIdx.z: image.  Step t of
 // residue r is output row h = r + t d.  When input row h + d arrives it
@@ -175,11 +246,11 @@ __device__ __forceinline__ void add_taps(float acc[8], const float v[3][8],
 // (dy = 0) and opens output h + 2d (dy = -1, added first).  Three blocks
 // per SM (<= 85 registers, 24 warps): BN1's affine is read from L1 at each
 // store rather than held, which measured 6-11% faster than two blocks.
-template <typename T>
+template <typename T, typename TC>
 __global__ void __launch_bounds__(ST_CX * ST_WY, 3)
-    dw_stencil_kernel(const T* __restrict__ z, const bf16* __restrict__ wdw,
+    dw_stencil_kernel(const T* __restrict__ z, const TC* __restrict__ wdw,
                       const float* __restrict__ s1,
-                      const float* __restrict__ c1, bf16* __restrict__ zb,
+                      const float* __restrict__ c1, TC* __restrict__ zb,
                       int H, int W, int C, int d, int rows) {
   const int C8 = C / 8;
   const int ctiles = (C8 + ST_CX - 1) / ST_CX;
@@ -208,18 +279,13 @@ __global__ void __launch_bounds__(ST_CX * ST_WY, 3)
     const int h = r + t * d;
     load_row(z, v, n, h + d, w, H, W, C, c, d);
     add_taps(close, v, wdw, 2, C, c);
-    float sc[8], sh[8];
+    float sc[8], sh[8], o[8];
     load8(s1 + c, sc);
     load8(c1 + c, sh);
-    uint4 out;
-    __nv_bfloat162* o = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
-      o[j] = __floats2bfloat162_rn(
-          __fadd_rn(__fmul_rn(close[2 * j], sc[2 * j]), sh[2 * j]),
-          __fadd_rn(__fmul_rn(close[2 * j + 1], sc[2 * j + 1]),
-                    sh[2 * j + 1]));
-    *reinterpret_cast<uint4*>(zb + ((n * H + h) * W + w) * C + c) = out;
+    for (int j = 0; j < 8; ++j)
+      o[j] = __fadd_rn(__fmul_rn(close[j], sc[j]), sh[j]);
+    store8(zb + ((n * H + h) * W + w) * C + c, o);
     if (t + 1 == t1) break;
 #pragma unroll
     for (int j = 0; j < 8; ++j) close[j] = cont[j];
@@ -485,6 +551,108 @@ __global__ void __launch_bounds__(THREADS, 1)
   }
 }
 
+// The pointwise product in f32 (mf_pw_gemm_f32): out = A @ Wt^T + c2 or,
+// FINAL, that + relu(skip_src), all f32.  One block per FBM x FBN output
+// tile; thread (tx, ty) = (tid % 16, tid / 16) accumulates rows ty*4 + i
+// and 64 + ty*4 + i, columns tx*4 + j and 64 + tx*4 + j (i, j < 4).  Each
+// k-tile of A (FBM x FBK) and W^T (FBN x FBK) is copied by 16-byte loads,
+// thread tid taking k-columns (tid % 2)*4.. of row tid / 2, one k-tile
+// ahead of the product, then stored transposed (k-major rows of FLD
+// floats) into the buffer the product does not read.
+template <bool FINAL>
+__global__ void __launch_bounds__(FTHREADS, 2)
+    gemm_f32_kernel(const float* __restrict__ a, const float* __restrict__ wt,
+                    const float* __restrict__ c2,
+                    const float* __restrict__ skip_src,
+                    float* __restrict__ out, int M, int K, int N) {
+  extern __shared__ float4 fsmem4[];
+  float* fsmem = reinterpret_cast<float*>(fsmem4);
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.y * FBM, n0 = blockIdx.x * FBN;
+  const int lr = tid / 2, lk = (tid % 2) * 4;
+  const bool a_in = m0 + lr < M, w_in = n0 + lr < N;
+  const float* a_src = a + (size_t)(a_in ? m0 + lr : 0) * K + lk;
+  const float* w_src = wt + (size_t)(w_in ? n0 + lr : 0) * K + lk;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  float4 ra, rw;
+  auto fetch = [&](int kt) {
+    ra = a_in ? *reinterpret_cast<const float4*>(a_src + kt * FBK) : zero;
+    rw = w_in ? *reinterpret_cast<const float4*>(w_src + kt * FBK) : zero;
+  };
+  auto stash = [&](int buf) {
+    float* as = fsmem + buf * F_STAGE;
+    float* ws = as + FBK * FLD;
+    as[(lk + 0) * FLD + lr] = ra.x;
+    as[(lk + 1) * FLD + lr] = ra.y;
+    as[(lk + 2) * FLD + lr] = ra.z;
+    as[(lk + 3) * FLD + lr] = ra.w;
+    ws[(lk + 0) * FLD + lr] = rw.x;
+    ws[(lk + 1) * FLD + lr] = rw.y;
+    ws[(lk + 2) * FLD + lr] = rw.z;
+    ws[(lk + 3) * FLD + lr] = rw.w;
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  const int nkt = K / FBK;
+  fetch(0);
+  stash(0);
+  __syncthreads();
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int buf = kt & 1;
+    if (kt + 1 < nkt) fetch(kt + 1);
+    const float* as = fsmem + buf * F_STAGE;
+    const float* ws = as + FBK * FLD;
+#pragma unroll
+    for (int k = 0; k < FBK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(as + k * FLD + ty * 4);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(as + k * FLD + 64 + ty * 4);
+      const float4 w0 = *reinterpret_cast<const float4*>(ws + k * FLD + tx * 4);
+      const float4 w1 =
+          *reinterpret_cast<const float4*>(ws + k * FLD + 64 + tx * 4);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float wv[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+    }
+    // the buffer written here was last read in step kt - 1, before the
+    // barrier that ended it
+    if (kt + 1 < nkt) stash(buf ^ 1);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i / 4) * 64 + ty * 4 + i % 4;
+    if (row >= M) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int col = n0 + h * 64 + tx * 4;
+      if (col >= N) continue;
+      const float4 b = *reinterpret_cast<const float4*>(c2 + col);
+      float4 v = make_float4(
+          __fadd_rn(acc[i][4 * h], b.x), __fadd_rn(acc[i][4 * h + 1], b.y),
+          __fadd_rn(acc[i][4 * h + 2], b.z), __fadd_rn(acc[i][4 * h + 3], b.w));
+      const size_t o = (size_t)row * N + col;
+      if (FINAL) {
+        const float4 sk = *reinterpret_cast<const float4*>(skip_src + o);
+        v.x = __fadd_rn(v.x, fmaxf(sk.x, 0.f));
+        v.y = __fadd_rn(v.y, fmaxf(sk.y, 0.f));
+        v.z = __fadd_rn(v.z, fmaxf(sk.z, 0.f));
+        v.w = __fadd_rn(v.w, fmaxf(sk.w, 0.f));
+      }
+      *reinterpret_cast<float4*>(out + o) = v;
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
@@ -572,6 +740,29 @@ int launch_gemm(const CUtensorMap& ma, const CUtensorMap& mw, const void* c2,
   return (int)cudaGetLastError();
 }
 
+template <bool FINAL>
+int launch_gemm_f32(const void* a, const void* wt, const void* c2,
+                    const void* skip_src, void* out, int M, int K, int N,
+                    int smem, cudaStream_t s) {
+  const dim3 grid((N + FBN - 1) / FBN, (M + FBM - 1) / FBM);
+  gemm_f32_kernel<FINAL><<<grid, FTHREADS, smem, s>>>(
+      (const float*)a, (const float*)wt, (const float*)c2,
+      (const float*)skip_src, (float*)out, M, K, N);
+  return (int)cudaGetLastError();
+}
+
+// The stencil's grid (ops/middle_flow.py dw_stencil_plan), or false when
+// the shape is out of the kernel's range.
+bool stencil_grid(int B, int H, int W, int C, int d, int rows, dim3* grid) {
+  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 || d <= 0 || rows <= 0 ||
+      (long long)B * H * W * C >= (1LL << 31) || B > 65535)
+    return false;
+  const int ctiles = (C / 8 + ST_CX - 1) / ST_CX;
+  const int segs = ((H + d - 1) / d + rows - 1) / rows;
+  *grid = dim3(ctiles * ((W + ST_WY - 1) / ST_WY), d * segs, B);
+  return true;
+}
+
 }  // namespace
 
 // The stencil: z (B, H, W, C) f32 or bf16 -> zb (B, H, W, C) bf16.  rows:
@@ -580,22 +771,34 @@ extern "C" int mf_dw_stencil(const void* z, int z_is_f32, const void* wdw,
                              const void* s1, const void* c1, void* zb, int B,
                              int H, int W, int C, int d, int rows,
                              void* stream) {
-  if (B <= 0 || H <= 0 || W <= 0 || C <= 0 || C % 8 || d <= 0 || rows <= 0 ||
-      (long long)B * H * W * C >= (1LL << 31) || B > 65535)
+  dim3 grid;
+  if (!stencil_grid(B, H, W, C, d, rows, &grid))
     return (int)cudaErrorInvalidValue;
-  const int ctiles = (C / 8 + ST_CX - 1) / ST_CX;
-  const int segs = ((H + d - 1) / d + rows - 1) / rows;
-  const dim3 grid(ctiles * ((W + ST_WY - 1) / ST_WY), d * segs, B);
   const dim3 block(ST_CX, ST_WY);
   cudaStream_t s = (cudaStream_t)stream;
   if (z_is_f32)
-    dw_stencil_kernel<float><<<grid, block, 0, s>>>(
+    dw_stencil_kernel<float, bf16><<<grid, block, 0, s>>>(
         (const float*)z, (const bf16*)wdw, (const float*)s1, (const float*)c1,
         (bf16*)zb, H, W, C, d, rows);
   else
-    dw_stencil_kernel<bf16><<<grid, block, 0, s>>>(
+    dw_stencil_kernel<bf16, bf16><<<grid, block, 0, s>>>(
         (const bf16*)z, (const bf16*)wdw, (const float*)s1, (const float*)c1,
         (bf16*)zb, H, W, C, d, rows);
+  return (int)cudaGetLastError();
+}
+
+// The stencil in f32: z (B, H, W, C) f32, f32 taps -> zb (B, H, W, C) f32.
+extern "C" int mf_dw_stencil_f32(const void* z, const void* wdw,
+                                 const void* s1, const void* c1, void* zb,
+                                 int B, int H, int W, int C, int d, int rows,
+                                 void* stream) {
+  dim3 grid;
+  if (!stencil_grid(B, H, W, C, d, rows, &grid))
+    return (int)cudaErrorInvalidValue;
+  dw_stencil_kernel<float, float>
+      <<<grid, dim3(ST_CX, ST_WY), 0, (cudaStream_t)stream>>>(
+          (const float*)z, (const float*)wdw, (const float*)s1,
+          (const float*)c1, (float*)zb, H, W, C, d, rows);
   return (int)cudaGetLastError();
 }
 
@@ -616,6 +819,21 @@ extern "C" int mf_pw_gemm(const void* a, const void* wt, const void* c2,
   if (skip_src)
     return launch_gemm<true>(ma, mw, c2, skip_src, out, M, K, N, smem, s);
   return launch_gemm<false>(ma, mw, c2, nullptr, out, M, K, N, smem, s);
+}
+
+// The pointwise product in f32: a (M, K) @ wt (N, K)^T + c2 -> f32 (M, N),
+// with relu(skip_src) (M, N) f32 added when it is given.  smem: the plan's
+// shared-memory bytes (ops/middle_flow.py pw_gemm_f32_plan).
+extern "C" int mf_pw_gemm_f32(const void* a, const void* wt, const void* c2,
+                              const void* skip_src, void* out, int M, int K,
+                              int N, int smem, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % FBK || N % 8 ||
+      (M + FBM - 1) / FBM > 65535 || smem < F_SMEM || smem > 48 * 1024)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (skip_src)
+    return launch_gemm_f32<true>(a, wt, c2, skip_src, out, M, K, N, smem, s);
+  return launch_gemm_f32<false>(a, wt, c2, nullptr, out, M, K, N, smem, s);
 }
 
 // Registers per thread ptxas gave the GEMM (final: the FINAL variant), or

@@ -11,8 +11,10 @@ rounded to the compute dtype.
 Tensors are NHWC, as in JAX.  :func:`middle_flow_eval` takes the plain
 version for a CPU tensor only; for a CUDA tensor it launches the kernels of
 ``csrc/middle_flow.cu`` or raises: ``mf_dw_stencil`` then ``mf_pw_gemm``
-per separable conv, 96 launches for the 16 blocks.  Design notes and
-bounds are in that file's header.
+per separable conv in bf16, ``mf_dw_stencil_f32`` then ``mf_pw_gemm_f32``
+in f32 (the fold's compute dtype, as the JAX kernel computes in its
+caller's), 96 launches for the 16 blocks.  Design notes and bounds are in
+that file's header.
 """
 
 from __future__ import annotations
@@ -26,13 +28,17 @@ from cervical_tpu_torch.ops import _build
 
 SOURCE = _build.CSRC_DIR / "middle_flow.cu"
 
-# kernel launches, counted by the wrappers where they launch
+# kernel launches, counted by the wrappers where they launch: LAUNCHES
+# counts each wrapper's launches in either type, F32_LAUNCHES those of its
+# f32 instance (mf_dw_stencil_f32, mf_pw_gemm_f32) once more on their own
 LAUNCHES = {"dw_stencil": 0, "pw_gemm": 0}
+F32_LAUNCHES = {"dw_stencil": 0, "pw_gemm": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, F32_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -110,9 +116,10 @@ def dw_stencil_reference(z, wdw9, s1, c1, dilation: int, dtype):
 
 
 def pw_gemm_reference(zb, w, c2, skip_src=None):
-    """``zb @ w + c2`` in f32 (products of the bf16 inputs are exact in
-    f32); with ``skip_src`` (the block input) adds ``relu(skip_src)`` and
-    rounds to its dtype."""
+    """``zb @ w + c2`` in f32 (products of bf16 inputs are exact in f32;
+    on the card an f32 ``zb`` needs TF32 off for a full-f32 product); with
+    ``skip_src`` (the block input) adds ``relu(skip_src)`` and rounds to
+    its dtype."""
     z = torch.matmul(zb.float(), w.float()) + c2
     if skip_src is None:
         return z
@@ -146,6 +153,7 @@ def middle_flow_reference(x, folded, dilation: int = 1):
 
 ST_CX, ST_WY, STENCIL_ROWS = 8, 32, 8
 BK, THREADS, GBM, GBN, GSTAGES = 64, 384, 256, 184, 4
+FBM, FBN, FBK, FTHREADS, FLD = 128, 128, 8, 256, 132
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -183,6 +191,19 @@ def pw_gemm_plan(m: int, k: int, n: int) -> dict:
             "stages": GSTAGES}
 
 
+def pw_gemm_f32_plan(m: int, k: int, n: int) -> dict:
+    """Launch of ``mf_pw_gemm_f32``: one block of ``FTHREADS`` per ``FBM``
+    x ``FBN`` output tile (8 x 8 accumulators a thread), K in whole k-tiles
+    of ``FBK``; two shared buffers, each holding A's and W^T's k-tile
+    transposed in rows of ``FLD`` floats."""
+    if k % 8 or n % 8 or m < 1 or k < 8 or n < 8:
+        raise ValueError(f"channels must be multiples of 8 and rows >= 1, "
+                         f"got m={m} k={k} n={n}")
+    return {"grid": (_cdiv(n, FBN), _cdiv(m, FBM)), "threads": FTHREADS,
+            "k_tiles": k // FBK, "smem_bytes": 2 * 2 * FBK * FLD * 4,
+            "tile": (FBM, FBN, FBK), "row_bytes": (k * 4, n * 4)}
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -202,6 +223,11 @@ def _lib():
         lib.mf_pw_gemm.restype = i32
         lib.mf_pw_gemm_regs.argtypes = [i32]
         lib.mf_pw_gemm_regs.restype = i32
+        lib.mf_dw_stencil_f32.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
+                                          i32, i32, i32, vp]
+        lib.mf_dw_stencil_f32.restype = i32
+        lib.mf_pw_gemm_f32.argtypes = lib.mf_pw_gemm.argtypes
+        lib.mf_pw_gemm_f32.restype = i32
         _lib_handle = lib
     return _lib_handle
 
@@ -238,73 +264,92 @@ def _raise(name, rc):
 
 
 def dw_stencil(z, wdw9, s1, c1, dilation: int, dtype=torch.bfloat16):
-    """Kernel ``mf_dw_stencil``: :func:`dw_stencil_reference` on the card.
-    ``z`` (B, H, W, C) bf16 or f32, ``wdw9`` (9, C) bf16, ``s1``/``c1``
-    (C,) f32, C a multiple of 8; returns ``zb`` (B, H, W, C) bf16."""
-    if dtype != torch.bfloat16 or z.dtype not in (torch.bfloat16,
-                                                  torch.float32):
-        raise TypeError("the middle-flow kernels compute in bf16, got "
-                        f"input {z.dtype}, output {dtype}")
+    """Kernel ``mf_dw_stencil`` (bf16) or ``mf_dw_stencil_f32`` (f32):
+    :func:`dw_stencil_reference` on the card.  ``s1``/``c1`` (C,) f32, C a
+    multiple of 8; ``dtype`` is the compute type, that of ``wdw9`` (9, C)
+    and of the returned ``zb`` (B, H, W, C): bf16 from a ``z`` (B, H, W, C)
+    in bf16 or f32, or f32 from an f32 ``z``."""
+    f32 = dtype == torch.float32
+    if not (f32 and z.dtype == torch.float32 or dtype == torch.bfloat16
+            and z.dtype in (torch.bfloat16, torch.float32)):
+        raise TypeError("the middle-flow kernels compute in bf16 (z bf16 or "
+                        "f32) or in f32 (z f32), got input "
+                        f"{z.dtype}, output {dtype}")
     if z.ndim != 4:
         raise ValueError(f"z must be (B, H, W, C), got {tuple(z.shape)}")
     b, h, w, c = z.shape
     if c % 8:
         raise ValueError(f"channels must be a multiple of 8, got {c}")
     _check("z", z, z.dtype, z.shape)
-    _check("wdw9", wdw9, torch.bfloat16, (9, c))
+    _check("wdw9", wdw9, dtype, (9, c))
     _check("s1", s1, torch.float32, (c,))
     _check("c1", c1, torch.float32, (c,))
     plan = dw_stencil_plan(b, h, w, c, dilation)
-    zb = torch.empty(z.shape, dtype=torch.bfloat16, device=z.device)
-    rc = _lib().mf_dw_stencil(z.data_ptr(), int(z.dtype == torch.float32),
-                              wdw9.data_ptr(), s1.data_ptr(), c1.data_ptr(),
-                              zb.data_ptr(), b, h, w, c, dilation,
-                              plan["rows"], _stream(z))
+    zb = torch.empty(z.shape, dtype=dtype, device=z.device)
+    if f32:
+        rc = _lib().mf_dw_stencil_f32(z.data_ptr(), wdw9.data_ptr(),
+                                      s1.data_ptr(), c1.data_ptr(),
+                                      zb.data_ptr(), b, h, w, c, dilation,
+                                      plan["rows"], _stream(z))
+    else:
+        rc = _lib().mf_dw_stencil(z.data_ptr(), int(z.dtype == torch.float32),
+                                  wdw9.data_ptr(), s1.data_ptr(),
+                                  c1.data_ptr(), zb.data_ptr(), b, h, w, c,
+                                  dilation, plan["rows"], _stream(z))
     if rc:
-        _raise("mf_dw_stencil", rc)
+        _raise("mf_dw_stencil_f32" if f32 else "mf_dw_stencil", rc)
     LAUNCHES["dw_stencil"] += 1
+    if f32:
+        F32_LAUNCHES["dw_stencil"] += 1
     return zb
 
 
 def pw_gemm(zb, w_t, c2, skip_src=None):
-    """Kernel ``mf_pw_gemm``: :func:`pw_gemm_reference` on the card.
-    ``zb`` (B, H, W, K) bf16, ``w_t`` (N, K) bf16 (the weight K-major, as
-    ``fold_middle_flow``'s ``wpw_t``), ``c2`` (N,) f32; returns f32, or
-    with ``skip_src`` (B, H, W, N) bf16 a bf16 tensor."""
+    """Kernel ``mf_pw_gemm`` (bf16) or ``mf_pw_gemm_f32`` (f32):
+    :func:`pw_gemm_reference` on the card.  ``zb`` (B, H, W, K) and
+    ``w_t`` (N, K) (the weight K-major, as ``fold_middle_flow``'s
+    ``wpw_t``) both bf16 or both f32, ``c2`` (N,) f32; returns f32, or with
+    ``skip_src`` (B, H, W, N) of ``zb``'s type a tensor of that type."""
     if zb.ndim != 4 or w_t.ndim != 2:
         raise ValueError(f"zb must be (B, H, W, K) and w_t (N, K), got "
                          f"{tuple(zb.shape)} and {tuple(w_t.shape)}")
+    if zb.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"zb must be bf16 or f32, got {zb.dtype}")
+    f32 = zb.dtype == torch.float32
     n, k = w_t.shape
     if k % 8 or n % 8:
         raise ValueError(f"channels must be multiples of 8, got {k}x{n}")
     m = zb.numel() // k
-    _check("zb", zb, torch.bfloat16, zb.shape[:3] + (k,))
-    _check("w_t", w_t, torch.bfloat16, (n, k))
+    _check("zb", zb, zb.dtype, zb.shape[:3] + (k,))
+    _check("w_t", w_t, zb.dtype, (n, k))
     _check("c2", c2, torch.float32, (n,))
     out_shape = zb.shape[:3] + (n,)
     if skip_src is not None:
-        _check("skip_src", skip_src, torch.bfloat16, out_shape)
-    plan = pw_gemm_plan(m, k, n)
+        _check("skip_src", skip_src, zb.dtype, out_shape)
+    plan = (pw_gemm_f32_plan if f32 else pw_gemm_plan)(m, k, n)
     out = torch.empty(out_shape, device=zb.device,
                       dtype=torch.float32 if skip_src is None
-                      else torch.bfloat16)
-    rc = _lib().mf_pw_gemm(zb.data_ptr(), w_t.data_ptr(), c2.data_ptr(),
-                           None if skip_src is None else skip_src.data_ptr(),
-                           out.data_ptr(), m, k, n, plan["smem_bytes"],
-                           _stream(zb))
+                      else skip_src.dtype)
+    launch = _lib().mf_pw_gemm_f32 if f32 else _lib().mf_pw_gemm
+    rc = launch(zb.data_ptr(), w_t.data_ptr(), c2.data_ptr(),
+                None if skip_src is None else skip_src.data_ptr(),
+                out.data_ptr(), m, k, n, plan["smem_bytes"], _stream(zb))
     if rc:
-        _raise("mf_pw_gemm", rc)
+        _raise("mf_pw_gemm_f32" if f32 else "mf_pw_gemm", rc)
     LAUNCHES["pw_gemm"] += 1
+    if f32:
+        F32_LAUNCHES["pw_gemm"] += 1
     return out
 
 
 def middle_flow_eval(x, folded, dilation: int = 1):
     """Fused eval-mode middle flow: (B, H, W, C) -> (B, H, W, C).
 
-    ``folded`` comes from :func:`fold_middle_flow`.  A CPU tensor takes
-    :func:`middle_flow_reference`; a CUDA tensor (bf16, C a multiple of 8)
-    runs :func:`dw_stencil` then :func:`pw_gemm` (on ``wpw_t``) per
-    separable conv, 96 launches for 16 blocks.  Other devices raise.
+    ``folded`` comes from :func:`fold_middle_flow` at ``x``'s dtype.  A
+    CPU tensor takes :func:`middle_flow_reference`; a CUDA tensor (bf16 or
+    f32, C a multiple of 8) runs :func:`dw_stencil` then :func:`pw_gemm`
+    (on ``wpw_t``) per separable conv in ``x``'s dtype, 96 launches for 16
+    blocks.  Other devices raise.
     """
     if x.device.type == "cpu":
         return middle_flow_reference(x, folded, dilation)

@@ -21,8 +21,9 @@ its Python side does is undone and replayed instead:
 * ``state.step`` (the trainer's step count) advances by the captured
   steps at each replay;
 * the kernel launch counters (``ops.warp.LAUNCHES``,
-  ``ops.middle_flow.LAUNCHES``) keep their meaning, launches on the card:
-  each replay adds the launches the capture recorded.
+  ``ops.middle_flow.LAUNCHES`` and ``F32_LAUNCHES``) keep their meaning,
+  launches on the card: each replay adds the launches the capture
+  recorded.
 
 There is no fallback: a capture that fails raises, and a wrapper asked to
 upload host data during capture raises
@@ -40,7 +41,7 @@ from cervical_tpu_torch.models.layers import Dropout
 from cervical_tpu_torch.ops import middle_flow as MF
 from cervical_tpu_torch.ops import warp as W
 
-_COUNTERS = (W.LAUNCHES, MF.LAUNCHES)
+_COUNTERS = (W.LAUNCHES, MF.LAUNCHES, MF.F32_LAUNCHES)
 
 
 def dropout_generators(model, device) -> list:

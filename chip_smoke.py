@@ -17,12 +17,28 @@
    events, beside the least time the card could take (the larger of bytes
    over 3.35 TB/s and operations over 989 TFLOP/s bf16 tensor / 67 TFLOP/s
    fp32, H100 SXM data sheet).
+2b. The same at ``compute_dtype=float32`` (TF32 off for cuBLAS and
+   cuDNN): the f32 instances ``mf_dw_stencil_f32`` (bit-exact at dilations
+   1 and 2) and ``mf_pw_gemm_f32`` (within 1e-6 x (|zb| @ |W|) + 1e-6 of
+   ``torch.matmul`` in f32), the 16 f32 blocks one by one (1e-5 of the
+   block output's largest magnitude) and whole (1e-4 of it), beside the
+   plain version's own drift from an f64-accumulated plain version; times
+   against ``torch.mm`` f32, ``F.conv2d(groups=C)`` f32 and the f32 cuDNN +
+   cuBLAS chain, and bounds (the f32 product at 67 TFLOP/s).
 3. Drives the serving path: ``SegPredictor(fused_middle=True)`` at
    xception, os16, 512², 5 classes, bf16, seeded random weights,
    ``predict_masks`` on 16 synthetic 960x1280 images at batch 8.  The launch
    counts are zeroed just before and read just after: the stencil and the
    product launched 48 times each per forward.  The masks must agree with
    the unfused predictor on >= 99% of pixels.
+3b. The f32 serving and eval paths (``predictor_f32``): an f32
+   ``SegPredictor(fused_middle=True)`` and an unfused f32 one on the same
+   weights and 16 images: 96 f32 launches per forward and no bf16 one,
+   masks equal on >= 99.9% of pixels, ``predict_probs`` and
+   ``predict_probs_tiled`` within 1e-4, forward images/s of both; then an
+   f32 ``SegTrainer(fused_middle_eval=True)``'s ``evaluate_miou`` over 12
+   512² images, host-fed and resident (a CUDA graph) equal, against an
+   unfused f32 trainer (<= 0.1% of pixels in another cell).
 4. Holds the augmentation kernels K1 ``warp_images`` (bf16 and uint8 out),
    K2 ``warp_labels``, K3 ``photometric`` (select/all/none, bf16 and
    uint8 in) and K5 ``warp_photo_images`` against their plain versions at
@@ -165,8 +181,9 @@
    replicated epochs (loss rtol 1e-5, then 1e-3); (d) ``middle_flow_pipeline`` at (8, 728, 32, 32) bf16,
    16 blocks, 4 stages on 4 streams, 4 microbatches, equal to the
    sequential blocks per microbatch, both timed.
-13. Prints the seconds per phase, one ``{"kernels": [...]}`` line (six
-   kernels), then as the last line ``{"ok": true, "device": {...}}``.
+13. Prints the seconds per phase, one ``{"kernels": [...]}`` line (eight
+   kernels: K4's two in bf16 and in f32, K1-K3, K5), then as the last line
+   ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, before the last line, if any check fails, if there is no
 CUDA device, or if the ``cervical_tpu_torch`` package is not beside it.
@@ -237,25 +254,37 @@ def bound_ms(nbytes, bf16_ops=0.0, fp32_ops=0.0):
                                        else "operations")
 
 
-def random_folded(torch, g, nblk, c, device):
-    """Folded middle-flow weights scaled as tests/test_pallas_xception.py."""
+def random_folded(torch, g, nblk, c, device, dtype=None):
+    """Folded middle-flow weights scaled as tests/test_pallas_xception.py;
+    taps and pointwise weights in ``dtype`` (the compute type, bf16 by
+    default)."""
+    dtype = dtype or torch.bfloat16
+
     def n(*s):
         return torch.randn(*s, generator=g)
-    f = {"wdw": (n(nblk, 27, c) * 0.2).to(torch.bfloat16),
+    f = {"wdw": (n(nblk, 27, c) * 0.2).to(dtype),
          "s1": torch.rand(nblk, 3, c, generator=g) + 0.5,
          "c1": n(nblk, 3, c) * 0.1,
-         "wpw": (n(nblk, 3, c, c) * (1.5 / c ** 0.5)).to(torch.bfloat16),
+         "wpw": (n(nblk, 3, c, c) * (1.5 / c ** 0.5)).to(dtype),
          "c2": n(nblk, 3, c) * 0.1}
     f["wpw_t"] = f["wpw"].transpose(-1, -2)  # K-major, as fold_middle_flow
     return {k: v.to(device).contiguous() for k, v in f.items()}
 
 
+def gemm_f64(zb, w, c2, skip_src=None):
+    """``pw_gemm_reference`` with the product accumulated in f64: the
+    yardstick of the plain version's own drift."""
+    z = ((zb.double() @ w.double()) + c2).float()
+    return z if skip_src is None else \
+        (z + skip_src.float().clamp_min(0)).to(skip_src.dtype)
+
+
 def library_middle_flow(torch, F, folded, dilation):
     """Yardstick the port never calls: per separable conv one
-    ``F.conv2d(groups=C)`` and one ``torch.matmul`` in bf16 (cuDNN and
-    cuBLAS), elementwise ops between them."""
+    ``F.conv2d(groups=C)`` and one ``torch.matmul`` in the fold's compute
+    type (cuDNN and cuBLAS), elementwise ops between them."""
     nblk, _, c = folded["wdw"].shape
-    bf = torch.bfloat16
+    bf = folded["wdw"].dtype
     wd = folded["wdw"].view(nblk, 3, 3, 3, c).permute(0, 1, 4, 2, 3) \
         .unsqueeze(3).contiguous()                      # (nblk,3,C,1,3,3)
     s1, c1, c2 = (folded[k].to(bf) for k in ("s1", "c1", "c2"))
@@ -287,11 +316,6 @@ def kernel_phase(torch, F, MF, dev, g, shape=(8, 32, 32, 728, 16)):
     x = torch.randn(b, h, w, c, generator=g).to(dev, torch.bfloat16)
     k4 = {"name": "middle_flow_eval", "shape": [b, h, w, c], "blocks": nblk,
           "launches_per_forward": 6 * nblk}
-
-    def gemm_f64(zb, w, c2, skip_src=None):
-        z = (torch.matmul(zb.double(), w.double()) + c2).float()
-        return z if skip_src is None else \
-            (z + torch.relu(skip_src.float())).to(skip_src.dtype)
 
     # dilation 1 at os16's (B, H, W); dilation 2 at os8's (B, 2H, 2W)
     x_os8 = torch.randn(b, 2 * h, 2 * w, c, generator=g).to(dev, torch.bfloat16)
@@ -431,6 +455,187 @@ def kernel_phase(torch, F, MF, dev, g, shape=(8, 32, 32, 728, 16)):
     return [st, gm], k4
 
 
+# of |zb| @ |W|: K 2^-24 = 4.3e-5 is the worst case of a sum-order
+# difference and ~2^-24 of it the expected one; on the H100 the kernel
+# equals cuBLAS's SGEMM bit for bit at the main path's shape (PERF.md)
+F32_GEMM_RTOL = 1e-6
+F32_BLOCK_RTOL = 1e-5  # of a block output's largest magnitude
+F32_CHAIN_RTOL = 1e-4  # of the 16-block chain's
+
+
+def f32_gemm_ratio(got, ref, zb, w, skip=None):
+    """The f32 product's error over its bound's scale: max of |got - ref| /
+    (|zb| @ |W| + 1e-6 / F32_GEMM_RTOL [+ 2^-24 |ref| / F32_GEMM_RTOL where
+    the skip is added after the sum]); within the bound when <= F32_GEMM_RTOL.
+    Both sides sum K products in f32, each in its own order."""
+    m, k = zb.numel() // zb.shape[-1], zb.shape[-1]
+    scale = (zb.abs().reshape(m, k) @ w.abs()).view(ref.shape) \
+        + 1e-6 / F32_GEMM_RTOL
+    if skip is not None:
+        scale = scale + 2.0 ** -24 * ref.abs() / F32_GEMM_RTOL
+    return ((got - ref).abs() / scale).max().item()
+
+
+def kernel_phase_f32(torch, F, MF, dev, g, shape=(8, 32, 32, 728, 16)):
+    """K4 at compute_dtype=float32 (``mf_dw_stencil_f32``,
+    ``mf_pw_gemm_f32``) against the plain version at the main path's
+    shape, with TF32 off for cuBLAS and cuDNN; times and bounds.  Returns
+    (per-kernel records, whole-K4 record)."""
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and not torch.backends.cudnn.allow_tf32,
+          "TF32 must be off: the f32 references are full f32")
+    f32 = torch.float32
+    b, h, w, c, nblk = shape
+    m = b * h * w
+    folded = random_folded(torch, g, nblk, c, dev, f32)
+    x = torch.randn(b, h, w, c, generator=g).to(dev)
+    x_os8 = torch.randn(b, 2 * h, 2 * w, c, generator=g).to(dev)
+    k4 = {"name": "middle_flow_eval_f32", "shape": [b, h, w, c],
+          "blocks": nblk, "launches_per_forward": 6 * nblk}
+    for d, xin in ((1, x), (2, x_os8)):
+        # each block against the plain version on the same input: nothing
+        # rounds between the ops, the stencils are bit-exact, and the
+        # products differ from cuBLAS's by their sum order
+        xk, errs = xin, []
+        MF.reset_launches()
+        for k in range(nblk):
+            part = {n: v[k:k + 1] for n, v in folded.items()}
+            out = MF.middle_flow_eval(xk, part, d)
+            torch.cuda.synchronize()
+            ref = MF.middle_flow_reference(xk, part, d)
+            check(out.dtype == f32 and torch.isfinite(out).all().item(),
+                  f"K4 f32 block {k} output not finite f32")
+            errs.append((out - ref).abs().max().item()
+                        / ref.abs().max().item())
+            xk = out
+        per = {"dw_stencil": 3 * nblk, "pw_gemm": 3 * nblk}
+        check(dict(MF.LAUNCHES) == dict(MF.F32_LAUNCHES) == per,
+              f"K4 f32 blocks launched {MF.LAUNCHES} ({MF.F32_LAUNCHES} "
+              f"f32), expected {per} f32")
+        chained = MF.middle_flow_eval(xin, folded, d)
+        check(torch.equal(chained, xk), "the f32 16-block call differs from "
+              "the blocks run one by one")
+        print(f"K4 f32 dilation {d} {tuple(xin.shape)}, per block: max abs "
+              f"err / max |out| {max(errs):.4g} (limit {F32_BLOCK_RTOL:g})")
+        check(max(errs) <= F32_BLOCK_RTOL, f"K4 f32 disagrees with its plain "
+              f"version at dilation {d}: {max(errs):.4g}")
+        k4[f"max_rel_err_block_d{d}"] = max(errs)
+        ref = MF.middle_flow_reference(xin, folded, d)
+        ref64 = MF._middle_flow(xin, folded, d, MF.dw_stencil_reference,
+                                gemm_f64)
+        scale = ref.abs().max().item()
+        for name, got, want in (("kernel vs plain", chained, ref),
+                                ("plain vs f64-accumulated plain", ref,
+                                 ref64)):
+            e = (got - want).abs().max().item()
+            k4[f"chain_d{d}_{name}"] = {"max_abs_err": e,
+                                        "over_max_abs_out": e / scale}
+            print(f"K4 f32 dilation {d}, 16-block chain, {name}: max abs "
+                  f"{e:.4g} (max |ref| {scale:.4g}, ratio {e / scale:.3g})")
+        e = k4[f"chain_d{d}_kernel vs plain"]["over_max_abs_out"]
+        check(e <= F32_CHAIN_RTOL, f"the f32 16-block chain is {e:.3g} of "
+              f"max |out| from the plain version (limit {F32_CHAIN_RTOL})")
+        k4[f"max_abs_err_d{d}"] = k4[f"chain_d{d}_kernel vs plain"][
+            "max_abs_err"]
+    k4["max_abs_err"] = max(k4["max_abs_err_d1"], k4["max_abs_err_d2"])
+
+    lib = library_middle_flow(torch, F, folded, 1)
+    k4["ms"] = cuda_ms(torch, lambda: MF.middle_flow_eval(x, folded, 1), 10)
+    k4["host_gaps_ms"] = cuda_ms(
+        torch, lambda: MF.middle_flow_eval(x, folded, 1), 10, queued=False)
+    k4["plain_ms"] = cuda_ms(
+        torch, lambda: MF.middle_flow_reference(x, folded, 1), 3)
+    k4["library_ms"] = cuda_ms(torch, lambda: lib(x), 10)
+    k4["library"] = "F.conv2d(groups=C) + torch.matmul per separable conv, " \
+        "f32 (cuDNN + cuBLAS, TF32 off), elementwise ops between"
+    wbytes = sum(v.numel() * v.element_size() for n, v in folded.items()
+                 if n != "wpw_t")
+    k4["bound_ms"], k4["bound_by"] = bound_ms(
+        2 * x.numel() * 4 + wbytes,
+        fp32_ops=(2.0 * c + 20.0) * m * c * 3 * nblk)
+
+    # each kernel alone, at the shapes the main path gives it
+    wdw9, s1, c1 = folded["wdw"][0, :9], folded["s1"][0, 0], folded["c1"][0, 0]
+    wpw, c2 = folded["wpw"][0, 0], folded["c2"][0, 0]
+    wpw_t = folded["wpw_t"][0, 0]
+    zf = torch.randn(b, h, w, c, generator=g).to(dev)
+    zo = torch.randn(b, 2 * h, 2 * w, c, generator=g).to(dev)
+    st = {"name": "middle_flow.dw_stencil_f32",
+          "source": "csrc/middle_flow.cu", "function": "mf_dw_stencil_f32",
+          "wrapper": "dw_stencil"}
+    errs = []
+    for d, z in ((1, zf), (2, zf), (2, zo)):
+        got = MF.dw_stencil(z, wdw9, s1, c1, d, f32)
+        torch.cuda.synchronize()
+        ref = MF.dw_stencil_reference(z, wdw9, s1, c1, d, f32)
+        # same f32 ops in the same order, no FMA, no rounding: bit-exact
+        check(torch.equal(got, ref),
+              f"dw_stencil f32 disagrees (dilation {d}, {tuple(z.shape)})")
+        errs.append((got - ref).abs().max().item())
+    st["max_abs_err"] = max(errs)
+    st["ms"] = cuda_ms(torch, lambda: MF.dw_stencil(zf, wdw9, s1, c1, 1, f32),
+                       50)
+    st["plain_ms"] = cuda_ms(torch, lambda: MF.dw_stencil_reference(
+        zf, wdw9, s1, c1, 1, f32), 20)
+    zr = torch.relu(zf).permute(0, 3, 1, 2)
+    wconv = (wdw9 * s1).t().reshape(c, 1, 3, 3)
+    st["library_ms"] = cuda_ms(torch, lambda: F.conv2d(
+        zr, wconv, padding=1, groups=c), 50)
+    st["library"] = "F.conv2d(groups=C), f32 (cuDNN, TF32 off), BN scale " \
+        "folded into taps"
+    st["bound_ms"], st["bound_by"] = bound_ms(
+        zf.numel() * 4 * 2 + 9 * c * 4 + 2 * c * 4, fp32_ops=20.0 * m * c)
+    st["timed_shape"] = f"({b},{h},{w},{c}) f32 in, f32 out, dilation 1 " \
+        f"(ms_os8: ({b},{2 * h},{2 * w},{c}), dilation 2)"
+    st["ms_os8"] = cuda_ms(torch, lambda: MF.dw_stencil(zo, wdw9, s1, c1, 2,
+                                                        f32), 20)
+
+    gm = {"name": "middle_flow.pw_gemm_f32", "source": "csrc/middle_flow.cu",
+          "function": "mf_pw_gemm_f32", "wrapper": "pw_gemm"}
+    zb = torch.randn(b, h, w, c, generator=g).to(dev)
+    got = MF.pw_gemm(zb, wpw_t, c2)
+    torch.cuda.synchronize()
+    ref = MF.pw_gemm_reference(zb, wpw, c2)
+    r1 = f32_gemm_ratio(got, ref, zb, wpw)
+    e1 = (got - ref).abs().max().item()
+    got = MF.pw_gemm(zb, wpw_t, c2, skip_src=x)
+    torch.cuda.synchronize()
+    ref = MF.pw_gemm_reference(zb, wpw, c2, skip_src=x)
+    check(got.dtype == f32, f"pw_gemm f32 (final) returned {got.dtype}")
+    r2 = f32_gemm_ratio(got, ref, zb, wpw, skip=x)
+    e2 = (got - ref).abs().max().item()
+    print(f"pw_gemm f32 vs torch.matmul (TF32 off): max |err| / (|zb| @ |W|"
+          f" + ...) {r1:.4g} (final, skip added: {r2:.4g}); limit "
+          f"{F32_GEMM_RTOL:g}")
+    check(max(r1, r2) <= F32_GEMM_RTOL, "pw_gemm f32 disagrees: "
+          f"{max(r1, r2):.4g} of |zb| @ |W|")
+    gm["max_abs_err"] = max(e1, e2)
+    gm["max_err_over_abs_product"] = max(r1, r2)
+    gm["ms"] = cuda_ms(torch, lambda: MF.pw_gemm(zb, wpw_t, c2), 20)
+    gm["plain_ms"] = cuda_ms(torch, lambda: MF.pw_gemm_reference(zb, wpw, c2),
+                             20)
+    a2 = zb.view(m, c)
+    gm["library_ms"] = cuda_ms(torch, lambda: torch.mm(a2, wpw), 20)
+    gm["library"] = "torch.mm f32 (cuBLAS SGEMM, TF32 off), shift not " \
+        "included"
+    gm["bound_ms"], gm["bound_by"] = bound_ms(
+        zb.numel() * 4 + wpw.numel() * 4 + c * 4 + m * c * 4,
+        fp32_ops=2.0 * m * c * c)
+    gm["timed_shape"] = f"M={m} K=N={c}, f32 in and out"
+    for r in (st, gm):
+        r["kernel_ms"] = r["ms"]
+        print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+              f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
+              f"by {r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
+    print(f"dw_stencil f32 at os8 (dilation 2): {st['ms_os8']:.4f} ms")
+    print(f"K4 f32 middle_flow_eval {k4['shape']} x {nblk} blocks: "
+          f"{k4['ms']:.4f} ms ({k4['host_gaps_ms']:.4f} with host gaps; "
+          f"plain {k4['plain_ms']:.4f}, library "
+          f"{k4['library_ms']:.4f}, bound {k4['bound_ms']:.4f} by "
+          f"{k4['bound_by']})")
+    return [st, gm], k4
+
+
 def random_state(torch, model, g):
     """Seeded weights that keep a 20-block chain tame while the logits still
     depend on every block: kaiming-scaled kernels, BN scale ~1 except ~0.1
@@ -527,6 +732,113 @@ def predictor_phase(torch, MF, g, input_shape=(512, 512),
            "decided_share": float(decided.mean()), "decided_flips": flips,
            "class_histogram": hist}
     print("predictor " + json.dumps(res))
+    return launches, res
+
+
+def predictor_f32_phase(torch, MF, g, input_shape=(512, 512),
+                        image_hw=(960, 1280), n_val=12, device="cuda"):
+    """The f32 serving and eval paths with the fused middle flow: an f32
+    ``SegPredictor(fused_middle=True)`` against an unfused f32 one on the
+    same weights and images (``predict_masks``, ``predict_probs``,
+    ``predict_probs_tiled``, ``get_throughput``), then an f32 ``SegTrainer``
+    with ``fused_middle_eval=True``: ``evaluate_miou`` host-fed and
+    resident (a CUDA graph) against an unfused f32 trainer.  The counts are
+    zeroed before each run and read after: every forward runs the f32
+    kernels, 48 launches of each, and no other."""
+    from cervical_tpu_torch.config import SegTrainConfig
+    from cervical_tpu_torch.data.resident import ResidentSegData
+    from cervical_tpu_torch.data.voc import ArraySegDataset, BatchLoader
+    from cervical_tpu_torch.inference.predictor import SegPredictor
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer, build_model
+
+    cfg = dataclass_replace(SegTrainConfig(), dtype="float32",
+                            input_shape=tuple(input_shape))
+    state = random_state(torch, build_model(cfg), g)
+    fused = SegPredictor(cfg, state, fused_middle=True, device=device)
+    plain = SegPredictor(cfg, state, device=device)
+    n, batch = 16, 8
+    images = torch.randint(0, 256, (n,) + tuple(image_hw) + (3,), generator=g,
+                           dtype=torch.uint8).numpy()
+    fused.predict_masks(images[:batch], batch)  # warm-up
+    torch.cuda.synchronize()
+
+    def counted(fn, forwards, what):
+        MF.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        want = {"dw_stencil": 48 * forwards, "pw_gemm": 48 * forwards}
+        got = (dict(MF.LAUNCHES), dict(MF.F32_LAUNCHES))
+        check(got == (want, want), f"{what} launched {got[0]} ({got[1]} "
+              f"f32), expected {want}, all f32")
+        return out, got[1]
+
+    t0 = time.perf_counter()
+    masks, launches = counted(lambda: fused.predict_masks(images, batch),
+                              -(-n // batch), "f32 predict_masks")
+    dt = time.perf_counter() - t0
+    ref = plain.predict_masks(images, batch)
+    agree = float((masks == ref).mean())
+    probs, _ = counted(lambda: fused.predict_probs(images[0]), 1,
+                       "f32 predict_probs")
+    pdiff = float(abs(probs - plain.predict_probs(images[0])).max())
+    tiled, _ = counted(lambda: fused.predict_probs_tiled(images[0],
+                                                         batch_size=batch),
+                       2, "f32 predict_probs_tiled")  # 9 tiles: 2 batches
+    tdiff = float(abs(tiled - plain.predict_probs_tiled(
+        images[0], batch_size=batch)).max())
+    print(f"f32 predict_masks: {n} images {image_hw} at batch {batch} in "
+          f"{dt:.3f} s = {n / dt:.2f} images/s; f32 launches {launches}; "
+          f"masks agree with the unfused f32 predictor on {agree:.6f} of "
+          f"pixels; probs max abs diff {pdiff:.4g}, tiled {tdiff:.4g}")
+    check(agree >= 0.999, f"f32 fused/unfused masks agree on only {agree}")
+    check(max(pdiff, tdiff) <= 1e-4, f"f32 fused/unfused probs differ by "
+          f"{max(pdiff, tdiff):.4g}")
+    res = {"config": f"xception os16 {input_shape[0]}x{input_shape[1]} 5 "
+                     "classes float32, TF32 off",
+           "predict_masks_img_s": n / dt, "launches_f32": launches,
+           "mask_agreement": agree, "probs_max_abs_diff": pdiff,
+           "tiled_probs_max_abs_diff": tdiff,
+           "throughput_fused_img_s": fused.get_throughput(batch),
+           "throughput_unfused_img_s": plain.get_throughput(batch)}
+    del fused, plain
+
+    rng = torch.Generator().manual_seed(16)
+    h, w = input_shape
+    imgs = torch.randint(0, 256, (n_val, h, w, 3), generator=rng,
+                         dtype=torch.uint8).numpy()
+    lbls = torch.randint(0, 5, (n_val, h, w), generator=rng,
+                         dtype=torch.uint8).numpy()
+    hists = {}
+    for fused_eval in (True, False):
+        tr = SegTrainer(dataclass_replace(cfg, fused_middle_eval=fused_eval),
+                        device=device)
+        tr.state.model.load_state_dict(state)
+        loader = BatchLoader(ArraySegDataset(imgs, lbls), batch,
+                             shuffle=False, drop_last=False)
+        forwards = -(-n_val // batch)
+        if fused_eval:
+            host, _ = counted(lambda: tr.evaluate_miou(loader), forwards,
+                              "f32 fused evaluate_miou")
+            resident = ResidentSegData.from_arrays(imgs, lbls, batch, device,
+                                                   train=False)
+            # the resident eval is a CUDA graph: replays count the capture's
+            rs, _ = counted(lambda: tr.evaluate_miou(resident), forwards,
+                            "f32 fused resident evaluate_miou")
+            check((rs["hist"] == host["hist"]).all(), "the resident f32 "
+                  "fused confusion matrix differs from the host-fed one")
+            hists["fused"] = host["hist"]
+        else:
+            hists["unfused"] = tr.evaluate_miou(loader)["hist"]
+        del tr
+    diff = int(abs(hists["fused"] - hists["unfused"]).sum()) // 2
+    total = int(hists["fused"].sum())
+    print(f"f32 SegTrainer(fused_middle_eval=True).evaluate_miou: host = "
+          f"resident; {diff} of {total} pixels counted in another cell than "
+          "the unfused f32 trainer's")
+    check(total == n_val * h * w, f"f32 eval counted {total} pixels")
+    check(diff <= 1e-3 * total, f"f32 fused eval moved {diff} pixels")
+    res["eval_pixels_moved"] = diff
+    print("predictor_f32 " + json.dumps(res))
     return launches, res
 
 
@@ -3134,8 +3446,12 @@ def main():
         return out
     records, k4 = timed("kernels", kernel_phase, torch, F, MF, dev,
                         torch.Generator().manual_seed(0))
+    records32, k4_32 = timed("kernels_f32", kernel_phase_f32, torch, F, MF,
+                             dev, torch.Generator().manual_seed(15))
     launches, served = timed("predictor", predictor_phase, torch, MF,
                              torch.Generator().manual_seed(1))
+    launches32, _ = timed("predictor_f32", predictor_f32_phase, torch, MF,
+                          torch.Generator().manual_seed(1))
     warp = timed("warp", warp_phase, torch, W, A, dev,
                  torch.Generator().manual_seed(2))
     eager = timed("train", train_phase, torch, W,
@@ -3155,14 +3471,15 @@ def main():
     print("seconds per phase " + json.dumps(seconds))
 
     kernels = []
-    for r in records:
-        short = r["name"].split(".")[-1]
-        extra = {k: r[k] for k in ("library", "library_bf16_out_ms", "ms_os8")
+    for r, n in [(r, launches[r["name"].split(".")[-1]]) for r in records] + \
+            [(r, launches32[r["wrapper"]]) for r in records32]:
+        extra = {k: r[k] for k in ("library", "library_bf16_out_ms", "ms_os8",
+                                   "function", "max_err_over_abs_product")
                  if k in r}
         kernels.append({
             "name": r["name"], "route": "cuda",
             "source": "cervical_tpu_torch/" + r["source"],
-            "replaces": TPU_K4, "launches": launches[short],
+            "replaces": TPU_K4, "launches": n,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "kernel_ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -3188,6 +3505,7 @@ def main():
                                  "k1_k3_ms_none", "k1_k3_ms_all",
                                  "chain_differing") if k in r}})
     print(json.dumps({"k4_middle_flow_eval": k4}))
+    print(json.dumps({"k4_middle_flow_eval_f32": k4_32}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

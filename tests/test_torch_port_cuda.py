@@ -25,9 +25,10 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _random_folded(seed, nblk, c, device):
+def _random_folded(seed, nblk, c, device, dtype=torch.bfloat16):
     """Folded weights scaled like tests/test_pallas_xception.py, with the
-    K-major copy the kernels read, as fold_middle_flow makes it."""
+    K-major copy the kernels read, as fold_middle_flow makes it; taps and
+    pointwise weights in ``dtype``, the compute type."""
     rng = np.random.default_rng(seed)
     f = {"wdw": rng.standard_normal((nblk, 27, c)) * 0.2,
          "s1": rng.uniform(0.5, 1.5, (nblk, 3, c)),
@@ -35,48 +36,99 @@ def _random_folded(seed, nblk, c, device):
          "wpw": rng.standard_normal((nblk, 3, c, c)) * (1.5 / np.sqrt(c)),
          "c2": rng.standard_normal((nblk, 3, c)) * 0.1}
     out = {k: torch.from_numpy(v.astype(np.float32)).to(
-        device, torch.bfloat16 if k in ("wdw", "wpw") else torch.float32)
+        device, dtype if k in ("wdw", "wpw") else torch.float32)
         for k, v in f.items()}
     out["wpw_t"] = out["wpw"].transpose(-1, -2).contiguous()
     return out
 
 
+F32_GEMM_RTOL = 1e-5
+
+
+def _assert_f32_gemm_close(got, ref, zb, w, skip=None):
+    """The f32 GEMM against ``pw_gemm_reference`` (cuBLAS's SGEMM, TF32
+    off): both sum K products in f32 in their own order, each within
+    K 2^-24 (|zb| @ |w|) at worst (4.3e-5 of it at K = 728) and about
+    sqrt(K) 2^-24 of it in practice, so |got - ref| <= 1e-5 (|zb| @ |w|) +
+    1e-6; with the skip added after the sum, plus one rounding of the
+    result (2^-24 relative)."""
+    scale = torch.matmul(zb.abs().flatten(0, -2), w.abs()).view(ref.shape)
+    bound = F32_GEMM_RTOL * scale + 1e-6
+    if skip is not None:
+        bound = bound + 2.0 ** -24 * ref.abs()
+    err = (got - ref).abs()
+    assert bool((err <= bound).all()), float((err / bound).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("dilation", [1, 2])
 @pytest.mark.parametrize("c", [32, 728])
-def test_middle_flow_kernels_match_plain(cuda_device, c, dilation):
+def test_middle_flow_kernels_match_plain(cuda_device, c, dilation, dtype):
     """Odd spatial sizes and ragged C=728 tiles, each block held against the
     plain version on the same input.  bf16: f32 sums in another order flip
     bf16 roundings of zb and the block output, so rtol=atol=1e-2 as JAX
     holds its own kernel.  (Chained, the flips compound block by block:
-    the whole-chain drift is what chip_smoke.py reports.)"""
-    folded = _random_folded(9, 3, c, cuda_device)
+    the whole-chain drift is what chip_smoke.py reports.)  f32: nothing is
+    rounded between the ops, the stencils are bit-exact and the products
+    differ from cuBLAS's by their sum order (~1e-6 of |zb| @ |w| per
+    product, through three products and the skip): 1e-5 of the block
+    output's largest magnitude."""
+    folded = _random_folded(9, 3, c, cuda_device, dtype)
     x = torch.from_numpy(np.random.default_rng(10).standard_normal(
-        (2, 11, 13, c)).astype(np.float32)).to(cuda_device, torch.bfloat16)
+        (2, 11, 13, c)).astype(np.float32)).to(cuda_device, dtype)
     MF.reset_launches()
     chained = MF.middle_flow_eval(x, folded, dilation)
     assert MF.LAUNCHES == {"dw_stencil": 9, "pw_gemm": 9}
+    assert MF.F32_LAUNCHES == (MF.LAUNCHES if dtype == torch.float32 else
+                               {"dw_stencil": 0, "pw_gemm": 0})
     for k in range(3):
         part = {n: v[k:k + 1] for n, v in folded.items()}
         got = MF.middle_flow_eval(x, part, dilation)
         torch.cuda.synchronize()
         ref = MF.middle_flow_reference(x, part, dilation)
-        torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2,
-                                   atol=1e-2)
+        if dtype == torch.bfloat16:
+            torch.testing.assert_close(got.float(), ref.float(), rtol=1e-2,
+                                       atol=1e-2)
+        else:
+            assert got.dtype == torch.float32
+            err = (got - ref).abs().max().item()
+            assert err <= 1e-5 * ref.abs().max().item(), err
         x = got
     assert torch.equal(chained, x)  # the chain is the blocks one by one
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("c", [8, 40, 728])
-def test_stencil_is_exact_and_gemm_close(cuda_device, c):
+def test_stencil_is_exact_and_gemm_close(cuda_device, c, dtype):
     """The stencil repeats the plain version's f32 ops in order without
-    FMA: bit-exact.  The GEMM sums exact bf16 products in f32 in another
-    order: 1e-4.  With a bf16 output that is one bf16 step (2^-7 relative)
-    plus the f32 sum's error where adding the skip cancels the value."""
+    FMA: bit-exact.  bf16: the GEMM sums exact bf16 products in f32 in
+    another order: 1e-4.  With a bf16 output that is one bf16 step (2^-7
+    relative) plus the f32 sum's error where adding the skip cancels the
+    value.  f32 (f32 taps, zb, weight and skip): the GEMM to
+    ``_assert_f32_gemm_close``'s bound."""
     g = torch.Generator().manual_seed(c)
     z = torch.randn(3, 7, 5, c, generator=g).to(cuda_device)
-    w9 = torch.randn(9, c, generator=g).to(cuda_device, torch.bfloat16)
+    w9 = torch.randn(9, c, generator=g).to(cuda_device, dtype)
     s1 = torch.rand(c, generator=g).to(cuda_device) + 0.5
     c1 = torch.randn(c, generator=g).to(cuda_device)
+    if dtype == torch.float32:
+        got = MF.dw_stencil(z, w9, s1, c1, 2, dtype)
+        assert got.dtype == torch.float32
+        assert torch.equal(got, MF.dw_stencil_reference(z, w9, s1, c1, 2,
+                                                        dtype))
+        zb = torch.randn(3, 7, 5, c, generator=g).to(cuda_device)
+        w = torch.randn(c, c, generator=g).to(cuda_device)
+        w_t = w.t().contiguous()
+        c2 = torch.randn(c, generator=g).to(cuda_device)
+        _assert_f32_gemm_close(MF.pw_gemm(zb, w_t, c2),
+                               MF.pw_gemm_reference(zb, w, c2), zb, w)
+        got = MF.pw_gemm(zb, w_t, c2, z)
+        assert got.dtype == torch.float32
+        _assert_f32_gemm_close(got, MF.pw_gemm_reference(zb, w, c2, z), zb,
+                               w, skip=z)
+        return
     for zin in (z, z.to(torch.bfloat16)):
         got = MF.dw_stencil(zin, w9, s1, c1, 2)
         ref = MF.dw_stencil_reference(zin, w9, s1, c1, 2, torch.bfloat16)
@@ -94,39 +146,48 @@ def test_stencil_is_exact_and_gemm_close(cuda_device, c):
                                rtol=2 ** -7, atol=1e-3)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
 @pytest.mark.parametrize("dilation", [1, 2])
 @pytest.mark.parametrize("c", [8, 40, 728])
 @pytest.mark.parametrize("bhw", [(3, 7, 5), (3, 13, 211)])
-def test_kernels_match_plain_at_ragged_shapes(cuda_device, bhw, c, dilation):
+def test_kernels_match_plain_at_ragged_shapes(cuda_device, bhw, c, dilation,
+                                              dtype):
     """Both kernels at ragged M (105 and 8192 + 37 rows; 211 columns span
     7 column tiles of the stencil) and ragged C.  The stencil repeats the
     plain version's f32 ops in order without FMA: bit-exact, for the bf16
     block input and the f32 z between convs.  The GEMM sums exact bf16
     products in f32 in another order: rtol=atol=1e-4; with the skip added
-    and a bf16 output, one bf16 step (2^-7 relative)."""
+    and a bf16 output, one bf16 step (2^-7 relative).  f32: the block input
+    is f32 too, the stencil bit-exact and the GEMM (N = 728 is 5 x 128 +
+    88, 8 is a tile's 8 columns) to ``_assert_f32_gemm_close``'s bound,
+    with the f32 launches counted on their own."""
     rng = np.random.default_rng(c * 10 + dilation)
 
     def t(*shape, scale=1.0, dtype=torch.float32):
         return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
             np.float32)).to(cuda_device, dtype)
-    z, x = t(*bhw, c), t(*bhw, c, dtype=torch.bfloat16)
-    w9, w = t(9, c, scale=0.3, dtype=torch.bfloat16), \
-        t(c, c, scale=c ** -0.5, dtype=torch.bfloat16)
+    z, x = t(*bhw, c), t(*bhw, c, dtype=dtype)
+    w9, w = t(9, c, scale=0.3, dtype=dtype), \
+        t(c, c, scale=c ** -0.5, dtype=dtype)
     s1 = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(
         cuda_device)
     c1, c2 = t(c, scale=0.1), t(c, scale=0.1)
     w_t = w.t().contiguous()
+    f32 = dtype == torch.float32
     for zin, skip in ((x, None), (z, None), (z, x)):
         MF.reset_launches()
-        zb = MF.dw_stencil(zin, w9, s1, c1, dilation)
+        zb = MF.dw_stencil(zin, w9, s1, c1, dilation, dtype)
         got = MF.pw_gemm(zb, w_t, c2, skip)
         torch.cuda.synchronize()
         assert MF.LAUNCHES == {"dw_stencil": 1, "pw_gemm": 1}
-        zb_ref = MF.dw_stencil_reference(zin, w9, s1, c1, dilation,
-                                         torch.bfloat16)
+        assert MF.F32_LAUNCHES == {"dw_stencil": int(f32), "pw_gemm": int(f32)}
+        zb_ref = MF.dw_stencil_reference(zin, w9, s1, c1, dilation, dtype)
         assert torch.equal(zb, zb_ref)
         ref = MF.pw_gemm_reference(zb_ref, w, c2, skip)
-        if skip is None:
+        if f32:
+            _assert_f32_gemm_close(got, ref, zb_ref, w, skip)
+        elif skip is None:
             torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4)
         else:
             torch.testing.assert_close(got.float(), ref.float(),
@@ -194,6 +255,68 @@ def test_kernels_opt_in_to_large_shared_memory(cuda_device):
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_f32_gemm_shared_memory(cuda_device):
+    """mf_pw_gemm_f32 keeps two buffers of A's and W^T's transposed k-tiles,
+    16,896 bytes: under the 48 KB default (the source asserts it), so it
+    launches without cudaFuncSetAttribute, where the bf16 GEMM must opt
+    in.  A fresh process runs the f32 stencil and both f32 GEMM variants
+    once at K = N = 728."""
+    import os
+    import subprocess
+    import sys
+    plan = MF.pw_gemm_f32_plan(105, 728, 728)
+    assert plan["smem_bytes"] == 16896 <= 48 * 1024
+    code = (
+        "import torch; from cervical_tpu_torch.ops import middle_flow as MF\n"
+        "torch.backends.cuda.matmul.allow_tf32 = False\n"
+        "d = torch.device('cuda'); g = torch.Generator().manual_seed(0)\n"
+        "z = torch.randn(1, 15, 7, 728, generator=g).to(d)\n"
+        "w9 = torch.randn(9, 728, generator=g).to(d)\n"
+        "w = torch.randn(728, 728, generator=g).to(d) / 27\n"
+        "v = torch.randn(728, generator=g).to(d)\n"
+        "zb = MF.dw_stencil(z, w9, v, v, 1, torch.float32)\n"
+        "assert torch.equal(zb, MF.dw_stencil_reference(z, w9, v, v, 1,\n"
+        "    torch.float32))\n"
+        "wt = w.t().contiguous()\n"
+        "torch.testing.assert_close(MF.pw_gemm(zb, wt, v),\n"
+        "    MF.pw_gemm_reference(zb, w, v), rtol=1e-5, atol=1e-5)\n"
+        "torch.testing.assert_close(MF.pw_gemm(zb, wt, v, z),\n"
+        "    MF.pw_gemm_reference(zb, w, v, z), rtol=1e-5, atol=1e-5)\n"
+        "assert MF.F32_LAUNCHES == {'dw_stencil': 1, 'pw_gemm': 2}\n"
+        "torch.cuda.synchronize(); print('ok')\n")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=repo,
+                         env=dict(os.environ, PYTHONPATH=repo),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_f32_wrappers_refuse_mixed_types(cuda_device):
+    """The kernels take a bf16 set or an f32 set: f32 taps with a bf16
+    input or output, bf16 taps asked for an f32 zb, an f32 zb with a bf16
+    weight or skip (and the other way round) raise TypeError; nothing is
+    cast to the other type's kernels."""
+    z = torch.zeros(1, 4, 4, 16, device=cuda_device)
+    zh = z.to(torch.bfloat16)
+    w32 = torch.zeros(9, 16, device=cuda_device)
+    v = torch.zeros(16, device=cuda_device)
+    MF.reset_launches()
+    with pytest.raises(TypeError):
+        MF.dw_stencil(z, w32, v, v, 1)  # f32 taps, bf16 zb
+    with pytest.raises(TypeError):
+        MF.dw_stencil(zh, w32, v, v, 1, torch.float32)  # bf16 input
+    with pytest.raises(TypeError):
+        MF.dw_stencil(z, w32.to(torch.bfloat16), v, v, 1, torch.float32)
+    w_t = torch.zeros(16, 16, device=cuda_device)
+    with pytest.raises(TypeError):
+        MF.pw_gemm(zh, w_t, v)  # bf16 zb, f32 weight
+    with pytest.raises(TypeError):
+        MF.pw_gemm(z, w_t, v, skip_src=zh)  # f32 zb, bf16 skip
+    with pytest.raises(TypeError):
+        MF.pw_gemm(zh, w_t.to(torch.bfloat16), v, skip_src=z)
+    assert MF.LAUNCHES == {"dw_stencil": 0, "pw_gemm": 0}
+
+
 def test_wrappers_check_their_inputs(cuda_device):
     z = torch.zeros(1, 4, 4, 16, device=cuda_device)
     w9 = torch.zeros(9, 16, device=cuda_device, dtype=torch.bfloat16)
@@ -223,16 +346,24 @@ def test_wrappers_check_their_inputs(cuda_device):
         MF.middle_flow_eval(zb, folded, 1)
 
 
-def test_fused_predictor_matches_plain_on_cuda(cuda_device):
-    """SegPredictor at 64², bf16, defaults to CUDA; the fused middle flow
-    goes through the kernels and agrees with the unfused model."""
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"],
+                         ids=["bf16", "f32"])
+def test_fused_predictor_matches_plain_on_cuda(cuda_device, dtype):
+    """SegPredictor at 64², defaults to CUDA; the fused middle flow goes
+    through the kernels and agrees with the unfused model.  bf16: masks on
+    >= 99% of pixels, probs to 0.05.  f32, with TF32 off for cuBLAS and
+    cuDNN (both set here): the f32 kernels (96 launches of each type's
+    count), masks on >= 99.9% of pixels, probs to 1e-4."""
     from cervical_tpu_torch.config import SegDataConfig, SegTrainConfig
     from cervical_tpu_torch.inference.predictor import SegPredictor
     from cervical_tpu_torch.models.deeplab import DeepLab
     from torch_port_helpers import random_state
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     state = random_state(DeepLab(num_classes=5), seed=51)
-    cfg = SegTrainConfig(data=SegDataConfig(input_shape=(64, 64)))
+    cfg = SegTrainConfig(data=SegDataConfig(input_shape=(64, 64)),
+                         dtype=dtype)
     fused = SegPredictor(cfg, state, fused_middle=True)
     plain = SegPredictor(cfg, state)
     assert fused.device.type == "cuda"
@@ -241,9 +372,17 @@ def test_fused_predictor_matches_plain_on_cuda(cuda_device):
     m1 = fused.predict_masks(imgs, batch_size=2)
     assert MF.LAUNCHES == {"dw_stencil": 96, "pw_gemm": 96}
     m0 = plain.predict_masks(imgs, batch_size=2)
-    assert (m1 == m0).mean() >= 0.99
+    if dtype == "bfloat16":
+        assert MF.F32_LAUNCHES == {"dw_stencil": 0, "pw_gemm": 0}
+        assert (m1 == m0).mean() >= 0.99
+        np.testing.assert_allclose(fused.predict_probs(imgs[0]),
+                                   plain.predict_probs(imgs[0]), atol=0.05)
+        return
+    assert MF.F32_LAUNCHES == MF.LAUNCHES
+    assert (m1 == m0).mean() >= 0.999
     np.testing.assert_allclose(fused.predict_probs(imgs[0]),
-                               plain.predict_probs(imgs[0]), atol=0.05)
+                               plain.predict_probs(imgs[0]), rtol=0,
+                               atol=1e-4)
 
 
 # ---------------------------------------------------------------------------
@@ -671,6 +810,45 @@ def test_resident_graph_epoch_on_card(cuda_device):
                                         4, shuffle=False, drop_last=False))
     np.testing.assert_array_equal(tr.evaluate_miou(vrs)["hist"],
                                   host["hist"])
+
+
+def test_f32_fused_eval_trainer_on_card(cuda_device):
+    """An f32 SegTrainer with ``fused_middle_eval=True`` (TF32 off, set by
+    the fixture): ``evaluate_miou`` host-fed and resident (a CUDA graph,
+    whose replays count the captured launches) run the f32 kernels, 48
+    launches of each per eval forward and no bf16 one, give the same
+    matrix, and agree with the unfused f32 trainer on >= 99.9% of
+    pixels."""
+    from cervical_tpu_torch.config import SegDataConfig, SegTrainConfig
+    from cervical_tpu_torch.data.resident import ResidentSegData
+    from cervical_tpu_torch.data.voc import ArraySegDataset, BatchLoader
+    from cervical_tpu_torch.models.deeplab import DeepLab
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+    from torch_port_helpers import random_state
+    rng = np.random.default_rng(39)
+    imgs = rng.integers(0, 256, (11, 64, 64, 3), dtype=np.uint8)
+    lbls = rng.integers(0, 5, (11, 64, 64), dtype=np.uint8)
+    state = random_state(DeepLab(num_classes=5), seed=53)
+    hists = []
+    for fused in (True, False):
+        tr = SegTrainer(SegTrainConfig(
+            data=SegDataConfig(input_shape=(64, 64)), dtype="float32",
+            fused_middle_eval=fused))
+        tr.state.model.load_state_dict(state)
+        MF.reset_launches()
+        host = tr.evaluate_miou(BatchLoader(ArraySegDataset(imgs, lbls), 4,
+                                            shuffle=False, drop_last=False))
+        want = {"dw_stencil": 48 * 3 * fused, "pw_gemm": 48 * 3 * fused}
+        assert MF.LAUNCHES == MF.F32_LAUNCHES == want
+        if fused:
+            MF.reset_launches()
+            res = tr.evaluate_miou(ResidentSegData.from_arrays(
+                imgs, lbls, 4, cuda_device, train=False))
+            assert MF.LAUNCHES == MF.F32_LAUNCHES == want
+            np.testing.assert_array_equal(res["hist"], host["hist"])
+        hists.append(host["hist"])
+    assert hists[0].sum() == 11 * 64 * 64
+    assert np.abs(hists[0] - hists[1]).sum() // 2 <= 1e-3 * hists[0].sum()
 
 
 def test_einsum_augmentation_on_card_matches_cpu(cuda_device):

@@ -130,3 +130,108 @@ def test_fold_keeps_a_k_major_copy():
     f = MF.fold_middle_flow(mini, count=2)
     assert f["wpw_t"].shape == (2, 3, 16, 16) and f["wpw_t"].is_contiguous()
     assert torch.equal(f["wpw_t"], f["wpw"].transpose(-1, -2))
+
+
+# ---------------------------------------------------------------------------
+# The f32 instances: mf_dw_stencil_f32 (the stencil's plan, above) and
+# mf_pw_gemm_f32
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [16, 728])
+@pytest.mark.parametrize("m", [1, 16, 8192, 32768])
+def test_f32_plan_covers_every_row_and_column_and_fits(m, k):
+    """One block per 128 x 128 output tile covering every row and column
+    (K = N), K in whole k-tiles of 8 (no ragged k-tile: K is a multiple of
+    8), two buffers of A's and W^T's transposed k-tiles within the 227 KB a
+    block may opt in to (and under the 48 KB default), rows of A, W^T and
+    the output 16-byte aligned for the kernel's 16-byte loads and stores,
+    256 threads of 8 x 8 accumulators filling the tile."""
+    g = MF.pw_gemm_f32_plan(m, k, k)
+    gn, gm = g["grid"]
+    assert gm * MF.FBM >= m > (gm - 1) * MF.FBM
+    assert gn * MF.FBN >= k > (gn - 1) * MF.FBN
+    assert g["k_tiles"] * MF.FBK == k
+    assert g["smem_bytes"] == 2 * 2 * MF.FBK * MF.FLD * 4 == 16896
+    assert g["smem_bytes"] <= 48 * 1024 <= 232448
+    assert all(b % 16 == 0 for b in g["row_bytes"])
+    # a padded shared row keeps 16-byte float4 reads aligned
+    assert (MF.FLD * 4) % 16 == 0 and MF.FLD >= MF.FBM
+    assert g["threads"] == MF.FTHREADS == 256
+    assert g["threads"] * 8 * 8 == MF.FBM * MF.FBN \
+        == g["tile"][0] * g["tile"][1]
+    # the copy: each thread moves 4 floats of one row of A's and of W^T's
+    # k-tile
+    assert g["threads"] * 4 == MF.FBM * MF.FBK == MF.FBN * MF.FBK
+    if (m, k) == (8192, 728):  # os16: 64 x 6 tiles
+        assert g["grid"] == (6, 64)
+
+
+def test_f32_stash_is_free_of_bank_conflicts():
+    """The transposing stores of a warp (threads t = 0..31: row t // 2,
+    k-columns (t % 2) * 4 + i for each i) land in 32 distinct banks with
+    rows padded to FLD floats."""
+    for i in range(4):
+        banks = {(((t % 2) * 4 + i) * MF.FLD + t // 2) % 32 for t in range(32)}
+        assert len(banks) == 32, i
+
+
+def test_f32_plan_constants_match_the_source():
+    """``pw_gemm_f32_plan`` mirrors ``csrc/middle_flow.cu``'s constants."""
+    src = MF.SOURCE.read_text()
+    for name in ("FBM", "FBN", "FBK", "FTHREADS"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == getattr(MF, name), name
+    assert "constexpr int FLD = FBM + 4;" in src and MF.FLD == MF.FBM + 4
+    assert "constexpr int F_STAGE = 2 * FBK * FLD;" in src
+    assert "constexpr int F_SMEM = 2 * F_STAGE * (int)sizeof(float);" in src
+    assert "smem < F_SMEM || smem > 48 * 1024" in src and "K % FBK" in src
+    assert "static_assert(F_SMEM <= 48 * 1024" in src
+
+
+@pytest.mark.parametrize("m,k,n,match", [(105, 12, 16, "multiples of 8"),
+                                         (105, 16, 12, "multiples of 8"),
+                                         (0, 8, 8, "rows >= 1")])
+def test_f32_plan_refuses_shapes_the_kernel_does_not_take(m, k, n, match):
+    with pytest.raises(ValueError, match=match):
+        MF.pw_gemm_f32_plan(m, k, n)
+
+
+@pytest.mark.parametrize("case", ["cpu", "misaligned", "bf16_input"])
+def test_f32_wrappers_refuse_before_building(case):
+    """The f32 set (taps, z, zb and the weight f32) raises on a CPU tensor,
+    a misaligned operand, or a bf16 block input asked for an f32 zb, before
+    the kernel library loads (or builds)."""
+    z = torch.zeros(1, 4, 4, 16)
+    if case == "misaligned":
+        z = torch.zeros(1 + 256)[1:].view(1, 4, 4, 16)
+        err, match = ValueError, "aligned"
+    elif case == "bf16_input":
+        z = z.to(torch.bfloat16)
+        err, match = TypeError, "f32"
+    else:
+        err, match = ValueError, "CUDA"
+    with pytest.raises(err, match=match):
+        MF.dw_stencil(z, torch.zeros(9, 16), torch.zeros(16), torch.zeros(16),
+                      1, torch.float32)
+    if case != "bf16_input":
+        with pytest.raises(err, match=match):
+            MF.pw_gemm(z, torch.zeros(16, 16), torch.zeros(16), skip_src=z)
+    assert MF._lib_handle is None
+
+
+def test_f32_fold_feeds_the_f32_kernels():
+    """A fold at compute_dtype=float32 gives f32 taps and an f32 K-major
+    weight: the f32 set the wrappers take."""
+    from cervical_tpu_torch.models.backbones.xception import XceptionBlock
+    from torch_port_helpers import random_state
+
+    class Mini(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.block4 = XceptionBlock(16, 16, 1)
+    mini = Mini()
+    mini.load_state_dict(random_state(mini, 4))
+    f = MF.fold_middle_flow(mini, count=1, compute_dtype=torch.float32)
+    assert f["wdw"].dtype == f["wpw_t"].dtype == torch.float32
+    assert f["wdw"][0, :9].is_contiguous() and f["wpw_t"][0, 1].is_contiguous()
+    assert torch.equal(f["wpw_t"], f["wpw"].transpose(-1, -2))
