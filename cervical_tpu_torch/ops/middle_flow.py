@@ -13,8 +13,9 @@ version for a CPU tensor only; for a CUDA tensor it launches the kernels of
 ``csrc/middle_flow.cu`` or raises: ``mf_dw_stencil`` then ``mf_pw_gemm``
 per separable conv in bf16, ``mf_dw_stencil_f32`` then ``mf_pw_gemm_f32``
 in f32 (the fold's compute dtype, as the JAX kernel computes in its
-caller's), 96 launches for the 16 blocks.  Design notes and bounds are in
-that file's header.
+caller's; the f32 product runs on the tensor cores from the TF32 high and
+low parts of its operands, :func:`tf32_split`), 96 launches for the 16
+blocks.  Design notes and bounds are in that file's header.
 """
 
 from __future__ import annotations
@@ -59,7 +60,10 @@ def fold_middle_flow(backbone, first: int = 4, count: int = 16,
       (in, out) with bn2's scale folded in;
     * ``c2``  (count, 3, C) f32 — folded bn2 shift;
     * ``wpw_t`` (count, 3, C, C) — ``wpw`` K-major, (out, in), the layout
-      the kernels' tensor maps read (port-only key).
+      the kernels' tensor maps read (port-only key);
+    * ``wpw_t_split`` (count, 3, 2, C, C), at ``compute_dtype=float32``
+      only — ``wpw_t``'s TF32 high and low parts (:func:`tf32_split`), what
+      the f32 product reads (port-only key).
     """
     wdw, s1, c1, wpw, c2 = [], [], [], [], []
     for b in range(first, first + count):
@@ -93,7 +97,27 @@ def fold_middle_flow(backbone, first: int = 4, count: int = 16,
         "c2": torch.stack(c2).contiguous(),
     }
     out["wpw_t"] = out["wpw"].transpose(-1, -2).contiguous()
+    if compute_dtype == torch.float32:
+        out["wpw_t_split"] = torch.stack(tf32_split(out["wpw_t"]), 2)
     return out
+
+
+def _tf32_rna(x):
+    """``x`` f32 rounded to TF32 (10 mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``: an f32 with the 13 low mantissa
+    bits zero.  Bit arithmetic on the pattern: adding half of the dropped
+    unit carries into the kept bits exactly when the dropped part is at
+    least half of it (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x):
+    """``(hi, lo)`` with ``hi = _tf32_rna(x)``, ``lo = _tf32_rna(x - hi)``
+    (``x - hi`` is exact in f32): ``|x - hi - lo| <= 2^-22 |x|``.  The f32
+    product's operands as its kernel splits them."""
+    hi = _tf32_rna(x)
+    return hi, _tf32_rna(x.float() - hi)
 
 
 # ---------------------------------------------------------------------------
@@ -153,7 +177,10 @@ def middle_flow_reference(x, folded, dilation: int = 1):
 
 ST_CX, ST_WY, STENCIL_ROWS = 8, 32, 8
 BK, THREADS, GBM, GBN, GSTAGES = 64, 384, 256, 184, 4
-FBM, FBN, FBK, FTHREADS, FLD = 128, 128, 8, 256, 132
+FBK, FBM, FSTAGES, F_PRODUCER_REGS, F_CONSUMER_REGS = 32, 128, 3, 24, 240
+SW, SQ_MAX, S_OUT = 32, 13, 4
+# output rows per block of mf_dw_stencil_f32, by dilation
+STENCIL_F32_ROWS = {1: 4, 2: 3}
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -192,16 +219,56 @@ def pw_gemm_plan(m: int, k: int, n: int) -> dict:
 
 
 def pw_gemm_f32_plan(m: int, k: int, n: int) -> dict:
-    """Launch of ``mf_pw_gemm_f32``: one block of ``FTHREADS`` per ``FBM``
-    x ``FBN`` output tile (8 x 8 accumulators a thread), K in whole k-tiles
-    of ``FBK``; two shared buffers, each holding A's and W^T's k-tile
-    transposed in rows of ``FLD`` floats."""
+    """Launch of ``mf_pw_gemm_f32``: one block per ``FBM`` x ``GBN`` output
+    tile (one m64 panel per consumer warpgroup), A's ``FBK`` x ``FBM`` box
+    and W_hi's and W_lo's ``FBK`` x ``GBN`` boxes of each k-tile (128
+    bytes of f32: the swizzle's width, the last k-tile zero-filled past K)
+    streamed together through ``FSTAGES`` stages."""
     if k % 8 or n % 8 or m < 1 or k < 8 or n < 8:
         raise ValueError(f"channels must be multiples of 8 and rows >= 1, "
                          f"got m={m} k={k} n={n}")
-    return {"grid": (_cdiv(n, FBN), _cdiv(m, FBM)), "threads": FTHREADS,
-            "k_tiles": k // FBK, "smem_bytes": 2 * 2 * FBK * FLD * 4,
-            "tile": (FBM, FBN, FBK), "row_bytes": (k * 4, n * 4)}
+    stage = (FBM + 2 * GBN) * FBK * 4
+    return {"grid": (_cdiv(n, GBN), _cdiv(m, FBM)), "threads": THREADS,
+            "k_tiles": _cdiv(k, FBK), "k_pad": _cdiv(k, FBK) * FBK,
+            "stage_bytes": stage,
+            "smem_bytes": 1024 + FSTAGES * stage + 16 * FSTAGES,
+            "box_a": (FBK, FBM), "box_w": (FBK, GBN), "stages": FSTAGES,
+            "regs": (F_PRODUCER_REGS, F_CONSUMER_REGS)}
+
+
+def stencil_f32_quads(c: int) -> int:
+    """Channel quads per block of ``mf_dw_stencil_f32``: the largest odd
+    divisor of C / 4 up to ``SQ_MAX`` (728: 13)."""
+    return max(q for q in range(1, SQ_MAX + 1, 2) if (c // 4) % q == 0)
+
+
+def dw_stencil_f32_plan(b: int, h: int, w: int, c: int, dilation: int,
+                        rows: int | None = None) -> dict:
+    """Launch of ``mf_dw_stencil_f32``: blocks of ``SW`` columns x ``sq``
+    channel quads (a slice of ``4 sq`` channels), each walking ``rows``
+    output rows of one residue of h mod ``dilation`` from its ``rows + 2``
+    input rows, all in shared memory; grid (slices x column tiles, residues
+    x row segments, images).  ``rows`` defaults to ``STENCIL_F32_ROWS``."""
+    d = dilation
+    if rows is None:
+        rows = STENCIL_F32_ROWS.get(d, STENCIL_ROWS)
+    if c % 8 or min(b, h, w, c, d, rows) < 1:
+        raise ValueError(f"channels must be a multiple of 8 and sizes >= 1, "
+                         f"got {(b, h, w, c)}, dilation {d}, rows {rows}")
+    sq = stencil_f32_quads(c)
+    cs = 4 * sq
+
+    def up(x):
+        return _cdiv(x, 128) * 128
+    slot = up((SW + 2 * d) * cs * 4)
+    taps = up(11 * cs * 4)
+    smem = (128 + taps + (rows + 2) * slot + S_OUT * SW * cs * 4
+            + 8 * (rows + 2))
+    segs = _cdiv(_cdiv(h, d), rows)
+    return {"grid": (c // cs * _cdiv(w, SW), d * segs, b), "block": (SW, sq),
+            "rows": rows, "slice": cs, "slot_bytes": slot,
+            "smem_bytes": smem, "box_in": (cs, SW + 2 * d),
+            "box_out": (cs, SW)}
 
 
 # ---------------------------------------------------------------------------
@@ -228,6 +295,10 @@ def _lib():
         lib.mf_dw_stencil_f32.restype = i32
         lib.mf_pw_gemm_f32.argtypes = lib.mf_pw_gemm.argtypes
         lib.mf_pw_gemm_f32.restype = i32
+        lib.mf_pw_gemm_f32_regs.argtypes = [i32]
+        lib.mf_pw_gemm_f32_regs.restype = i32
+        lib.mf_tf32_split.argtypes = [vp, vp, vp, i32, vp]
+        lib.mf_tf32_split.restype = i32
         _lib_handle = lib
     return _lib_handle
 
@@ -254,9 +325,10 @@ def _stream(t):
 
 def _raise(name, rc):
     if rc >= 20000:
+        split = "24 + 2 x 240" if name.endswith("f32") else "40 + 2 x 232"
         raise RuntimeError(f"{name}: ptxas gave the kernel {rc - 20000} "
-                           "registers per thread; its setmaxnreg split (40 "
-                           "+ 232 over 384 threads) needs 168")
+                           "registers per thread; its setmaxnreg split "
+                           f"({split} over 3 warpgroups) needs 168")
     if rc >= 10000:
         raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed "
                            f"(CUresult {rc - 10000}; 999: no driver entry)")
@@ -284,7 +356,8 @@ def dw_stencil(z, wdw9, s1, c1, dilation: int, dtype=torch.bfloat16):
     _check("wdw9", wdw9, dtype, (9, c))
     _check("s1", s1, torch.float32, (c,))
     _check("c1", c1, torch.float32, (c,))
-    plan = dw_stencil_plan(b, h, w, c, dilation)
+    plan = (dw_stencil_f32_plan if f32 else dw_stencil_plan)(
+        b, h, w, c, dilation)
     zb = torch.empty(z.shape, dtype=dtype, device=z.device)
     if f32:
         rc = _lib().mf_dw_stencil_f32(z.data_ptr(), wdw9.data_ptr(),
@@ -306,22 +379,23 @@ def dw_stencil(z, wdw9, s1, c1, dilation: int, dtype=torch.bfloat16):
 
 def pw_gemm(zb, w_t, c2, skip_src=None):
     """Kernel ``mf_pw_gemm`` (bf16) or ``mf_pw_gemm_f32`` (f32):
-    :func:`pw_gemm_reference` on the card.  ``zb`` (B, H, W, K) and
-    ``w_t`` (N, K) (the weight K-major, as ``fold_middle_flow``'s
-    ``wpw_t``) both bf16 or both f32, ``c2`` (N,) f32; returns f32, or with
-    ``skip_src`` (B, H, W, N) of ``zb``'s type a tensor of that type."""
-    if zb.ndim != 4 or w_t.ndim != 2:
-        raise ValueError(f"zb must be (B, H, W, K) and w_t (N, K), got "
-                         f"{tuple(zb.shape)} and {tuple(w_t.shape)}")
+    :func:`pw_gemm_reference` on the card.  ``zb`` (B, H, W, K) bf16 or
+    f32, ``c2`` (N,) f32; ``w_t`` the weight K-major, of ``zb``'s type: bf16
+    (N, K) (``fold_middle_flow``'s ``wpw_t``), or in f32 its TF32 high and
+    low parts (2, N, K) (``wpw_t_split``, :func:`tf32_split`).  Returns
+    f32, or with ``skip_src`` (B, H, W, N) of ``zb``'s type a tensor of
+    that type."""
+    if zb.ndim != 4:
+        raise ValueError(f"zb must be (B, H, W, K), got {tuple(zb.shape)}")
     if zb.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"zb must be bf16 or f32, got {zb.dtype}")
     f32 = zb.dtype == torch.float32
-    n, k = w_t.shape
+    k, n = zb.shape[-1], w_t.shape[-2] if w_t.ndim >= 2 else 0
     if k % 8 or n % 8:
         raise ValueError(f"channels must be multiples of 8, got {k}x{n}")
+    _check("zb", zb, zb.dtype, zb.shape)
     m = zb.numel() // k
-    _check("zb", zb, zb.dtype, zb.shape[:3] + (k,))
-    _check("w_t", w_t, zb.dtype, (n, k))
+    _check("w_t", w_t, zb.dtype, ((2,) if f32 else ()) + (n, k))
     _check("c2", c2, torch.float32, (n,))
     out_shape = zb.shape[:3] + (n,)
     if skip_src is not None:
@@ -342,21 +416,34 @@ def pw_gemm(zb, w_t, c2, skip_src=None):
     return out
 
 
+def tf32_split_on_card(x):
+    """The f32 product's own split of ``x`` (f32, on the card), by kernel
+    ``mf_tf32_split``: ``(hi, lo)``, to hold against :func:`tf32_split`."""
+    _check("x", x, torch.float32, x.shape)
+    hi, lo = torch.empty_like(x), torch.empty_like(x)
+    rc = _lib().mf_tf32_split(x.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                              x.numel(), _stream(x))
+    if rc:
+        _raise("mf_tf32_split", rc)
+    return hi, lo
+
+
 def middle_flow_eval(x, folded, dilation: int = 1):
     """Fused eval-mode middle flow: (B, H, W, C) -> (B, H, W, C).
 
     ``folded`` comes from :func:`fold_middle_flow` at ``x``'s dtype.  A
     CPU tensor takes :func:`middle_flow_reference`; a CUDA tensor (bf16 or
     f32, C a multiple of 8) runs :func:`dw_stencil` then :func:`pw_gemm`
-    (on ``wpw_t``) per separable conv in ``x``'s dtype, 96 launches for 16
-    blocks.  Other devices raise.
+    (on ``wpw_t`` in bf16, ``wpw_t_split`` in f32) per separable conv in
+    ``x``'s dtype, 96 launches for 16 blocks.  Other devices raise.
     """
     if x.device.type == "cpu":
         return middle_flow_reference(x, folded, dilation)
     if not x.is_cuda:
         raise ValueError(f"middle_flow_eval runs on cpu or cuda, got {x.device}")
-    if "wpw_t" not in folded:
-        raise KeyError("folded lacks 'wpw_t', the K-major pointwise weights "
+    key = "wpw_t_split" if x.dtype == torch.float32 else "wpw_t"
+    if key not in folded:
+        raise KeyError(f"folded lacks {key!r}, the K-major pointwise weights "
                        "the kernels read: fold with fold_middle_flow")
     return _middle_flow(x.contiguous(), folded, dilation, dw_stencil, pw_gemm,
-                        "wpw_t")
+                        key)

@@ -18,13 +18,16 @@
    over 3.35 TB/s and operations over 989 TFLOP/s bf16 tensor / 67 TFLOP/s
    fp32, H100 SXM data sheet).
 2b. The same at ``compute_dtype=float32`` (TF32 off for cuBLAS and
-   cuDNN): the f32 instances ``mf_dw_stencil_f32`` (bit-exact at dilations
-   1 and 2) and ``mf_pw_gemm_f32`` (within 1e-6 x (|zb| @ |W|) + 1e-6 of
-   ``torch.matmul`` in f32), the 16 f32 blocks one by one (1e-5 of the
-   block output's largest magnitude) and whole (1e-4 of it), beside the
-   plain version's own drift from an f64-accumulated plain version; times
-   against ``torch.mm`` f32, ``F.conv2d(groups=C)`` f32 and the f32 cuDNN +
-   cuBLAS chain, and bounds (the f32 product at 67 TFLOP/s).
+   cuDNN): the f32 kernels ``mf_dw_stencil_f32`` (rows staged in shared
+   memory by TMA; bit-exact at dilations 1 and 2) and ``mf_pw_gemm_f32``
+   (3xTF32 on ``wgmma``: within 1e-6 x (|zb| @ |W|) + 1e-6 of
+   ``torch.matmul`` in f32, and its largest error from an f64-accumulated
+   product at most twice ``torch.mm``'s), the 16 f32 blocks one by one
+   (1e-5 of the block output's largest magnitude) and whole (1e-4 of it),
+   beside the plain version's own drift from an f64-accumulated plain
+   version; times against ``torch.mm`` f32, ``F.conv2d(groups=C)`` f32 and
+   the f32 cuDNN + cuBLAS chain, and bounds (the split product's three
+   passes at 495 TFLOP/s TF32, the old FFMA bound at 67 TFLOP/s beside).
 3. Drives the serving path: ``SegPredictor(fused_middle=True)`` at
    xception, os16, 512², 5 classes, bf16, seeded random weights,
    ``predict_masks`` on 16 synthetic 960x1280 images at batch 8.  The launch
@@ -200,6 +203,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12      # H100 SXM HBM3, bytes/s
 PEAK_BF16 = 989e12        # dense bf16 tensor-core FLOP/s
 PEAK_FP32 = 67e12         # fp32 FLOP/s outside the tensor cores
+PEAK_TF32 = 495e12        # dense TF32 tensor-core FLOP/s
 SPIN_CYCLES_PER_MS = 1.98e6  # torch.cuda._sleep cycles, at the top SM clock
 TPU_K4 = "cervical_tpu/ops/pallas_xception.py:161"
 TPU_WARP = {"warp_images": "cervical_tpu/ops/pallas_warp.py:298",
@@ -247,9 +251,10 @@ def cuda_ms(torch, fn, iters, warmup=2, queued=True):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes, bf16_ops=0.0, fp32_ops=0.0):
+def bound_ms(nbytes, bf16_ops=0.0, fp32_ops=0.0, tf32_ops=0.0):
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = bf16_ops / PEAK_BF16 + fp32_ops / PEAK_FP32
+    t_ops = (bf16_ops / PEAK_BF16 + fp32_ops / PEAK_FP32
+             + tf32_ops / PEAK_TF32)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -268,6 +273,9 @@ def random_folded(torch, g, nblk, c, device, dtype=None):
          "wpw": (n(nblk, 3, c, c) * (1.5 / c ** 0.5)).to(dtype),
          "c2": n(nblk, 3, c) * 0.1}
     f["wpw_t"] = f["wpw"].transpose(-1, -2)  # K-major, as fold_middle_flow
+    if dtype == torch.float32:  # the f32 product's TF32 parts, as the fold
+        from cervical_tpu_torch.ops.middle_flow import tf32_split
+        f["wpw_t_split"] = torch.stack(tf32_split(f["wpw_t"]), 2)
     return {k: v.to(device).contiguous() for k, v in f.items()}
 
 
@@ -456,8 +464,10 @@ def kernel_phase(torch, F, MF, dev, g, shape=(8, 32, 32, 728, 16)):
 
 
 # of |zb| @ |W|: K 2^-24 = 4.3e-5 is the worst case of a sum-order
-# difference and ~2^-24 of it the expected one; on the H100 the kernel
-# equals cuBLAS's SGEMM bit for bit at the main path's shape (PERF.md)
+# difference and ~2^-24 of it the expected one; the 3xTF32 kernel adds
+# ~2^-22 per term from its split, random in sign, and each k-tile's
+# truncated tensor-core sums (PERF.md; tests/test_torch_port_tf32_split.py
+# models them: ~2e-7)
 F32_GEMM_RTOL = 1e-6
 F32_BLOCK_RTOL = 1e-5  # of a block output's largest magnitude
 F32_CHAIN_RTOL = 1e-4  # of the 16-block chain's
@@ -549,15 +559,20 @@ def kernel_phase_f32(torch, F, MF, dev, g, shape=(8, 32, 32, 728, 16)):
     k4["library"] = "F.conv2d(groups=C) + torch.matmul per separable conv, " \
         "f32 (cuDNN + cuBLAS, TF32 off), elementwise ops between"
     wbytes = sum(v.numel() * v.element_size() for n, v in folded.items()
-                 if n != "wpw_t")
+                 if n not in ("wpw_t", "wpw_t_split"))
+    # the products' three TF32 passes on the tensor cores, the stencils'
+    # f32 operations outside them
     k4["bound_ms"], k4["bound_by"] = bound_ms(
+        2 * x.numel() * 4 + wbytes, tf32_ops=3 * 2.0 * m * c * c * 3 * nblk,
+        fp32_ops=20.0 * m * c * 3 * nblk)
+    k4["bound_fp32_ffma_ms"] = bound_ms(
         2 * x.numel() * 4 + wbytes,
-        fp32_ops=(2.0 * c + 20.0) * m * c * 3 * nblk)
+        fp32_ops=(2.0 * c + 20.0) * m * c * 3 * nblk)[0]
 
     # each kernel alone, at the shapes the main path gives it
     wdw9, s1, c1 = folded["wdw"][0, :9], folded["s1"][0, 0], folded["c1"][0, 0]
     wpw, c2 = folded["wpw"][0, 0], folded["c2"][0, 0]
-    wpw_t = folded["wpw_t"][0, 0]
+    wpw_s = folded["wpw_t_split"][0, 0]
     zf = torch.randn(b, h, w, c, generator=g).to(dev)
     zo = torch.randn(b, 2 * h, 2 * w, c, generator=g).to(dev)
     st = {"name": "middle_flow.dw_stencil_f32",
@@ -593,12 +608,18 @@ def kernel_phase_f32(torch, F, MF, dev, g, shape=(8, 32, 32, 728, 16)):
     gm = {"name": "middle_flow.pw_gemm_f32", "source": "csrc/middle_flow.cu",
           "function": "mf_pw_gemm_f32", "wrapper": "pw_gemm"}
     zb = torch.randn(b, h, w, c, generator=g).to(dev)
-    got = MF.pw_gemm(zb, wpw_t, c2)
+    got = MF.pw_gemm(zb, wpw_s, c2)
     torch.cuda.synchronize()
     ref = MF.pw_gemm_reference(zb, wpw, c2)
     r1 = f32_gemm_ratio(got, ref, zb, wpw)
     e1 = (got - ref).abs().max().item()
-    got = MF.pw_gemm(zb, wpw_t, c2, skip_src=x)
+    # against an f64-accumulated product: the kernel's largest error, at
+    # most twice torch.mm's own (TF32 off)
+    exact = (zb.double().reshape(m, c) @ wpw.double()).view(got.shape) \
+        + c2.double()
+    e64 = (got.double() - exact).abs().max().item()
+    e64_mm = (ref.double() - exact).abs().max().item()
+    got = MF.pw_gemm(zb, wpw_s, c2, skip_src=x)
     torch.cuda.synchronize()
     ref = MF.pw_gemm_reference(zb, wpw, c2, skip_src=x)
     check(got.dtype == f32, f"pw_gemm f32 (final) returned {got.dtype}")
@@ -606,28 +627,40 @@ def kernel_phase_f32(torch, F, MF, dev, g, shape=(8, 32, 32, 728, 16)):
     e2 = (got - ref).abs().max().item()
     print(f"pw_gemm f32 vs torch.matmul (TF32 off): max |err| / (|zb| @ |W|"
           f" + ...) {r1:.4g} (final, skip added: {r2:.4g}); limit "
-          f"{F32_GEMM_RTOL:g}")
+          f"{F32_GEMM_RTOL:g}; max |err| from an f64-accumulated product "
+          f"{e64:.4g} against torch.mm's {e64_mm:.4g} (limit 2x)")
     check(max(r1, r2) <= F32_GEMM_RTOL, "pw_gemm f32 disagrees: "
           f"{max(r1, r2):.4g} of |zb| @ |W|")
+    check(e64 <= 2 * e64_mm, f"pw_gemm f32 is {e64:.4g} from an f64 "
+          f"product, more than twice torch.mm's {e64_mm:.4g}")
     gm["max_abs_err"] = max(e1, e2)
     gm["max_err_over_abs_product"] = max(r1, r2)
-    gm["ms"] = cuda_ms(torch, lambda: MF.pw_gemm(zb, wpw_t, c2), 20)
+    gm["max_abs_err_f64"] = e64
+    gm["torch_mm_max_abs_err_f64"] = e64_mm
+    gm["ms"] = cuda_ms(torch, lambda: MF.pw_gemm(zb, wpw_s, c2), 20)
     gm["plain_ms"] = cuda_ms(torch, lambda: MF.pw_gemm_reference(zb, wpw, c2),
                              20)
     a2 = zb.view(m, c)
     gm["library_ms"] = cuda_ms(torch, lambda: torch.mm(a2, wpw), 20)
     gm["library"] = "torch.mm f32 (cuBLAS SGEMM, TF32 off), shift not " \
         "included"
+    gm_bytes = zb.numel() * 4 + wpw.numel() * 4 + c * 4 + m * c * 4
+    # three TF32 passes on the tensor cores; one f32 FFMA product beside
     gm["bound_ms"], gm["bound_by"] = bound_ms(
-        zb.numel() * 4 + wpw.numel() * 4 + c * 4 + m * c * 4,
-        fp32_ops=2.0 * m * c * c)
+        gm_bytes, tf32_ops=3 * 2.0 * m * c * c)
+    gm["bound_fp32_ffma_ms"] = bound_ms(gm_bytes,
+                                        fp32_ops=2.0 * m * c * c)[0]
+    gm["ms_os8"] = cuda_ms(torch, lambda: MF.pw_gemm(zo, wpw_s, c2), 10)
     gm["timed_shape"] = f"M={m} K=N={c}, f32 in and out"
     for r in (st, gm):
         r["kernel_ms"] = r["ms"]
         print(f"{r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"library {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} "
               f"by {r['bound_by']}), max_abs_err {r['max_abs_err']:.3g}")
-    print(f"dw_stencil f32 at os8 (dilation 2): {st['ms_os8']:.4f} ms")
+    print(f"dw_stencil f32 at os8 (dilation 2): {st['ms_os8']:.4f} ms; "
+          f"pw_gemm f32 at os8 (M {4 * m}): {gm['ms_os8']:.4f} ms; bound of "
+          f"one FFMA product {gm['bound_fp32_ffma_ms']:.4f} ms, of K4 f32 "
+          f"by FFMA {k4['bound_fp32_ffma_ms']:.4f} ms")
     print(f"K4 f32 middle_flow_eval {k4['shape']} x {nblk} blocks: "
           f"{k4['ms']:.4f} ms ({k4['host_gaps_ms']:.4f} with host gaps; "
           f"plain {k4['plain_ms']:.4f}, library "
@@ -3474,7 +3507,9 @@ def main():
     for r, n in [(r, launches[r["name"].split(".")[-1]]) for r in records] + \
             [(r, launches32[r["wrapper"]]) for r in records32]:
         extra = {k: r[k] for k in ("library", "library_bf16_out_ms", "ms_os8",
-                                   "function", "max_err_over_abs_product")
+                                   "function", "max_err_over_abs_product",
+                                   "bound_fp32_ffma_ms", "max_abs_err_f64",
+                                   "torch_mm_max_abs_err_f64")
                  if k in r}
         kernels.append({
             "name": r["name"], "route": "cuda",

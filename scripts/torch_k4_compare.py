@@ -8,14 +8,17 @@ For each digit of ``--order`` (default parent, change, change, parent) it
 starts one process with that root's ``cervical_tpu_torch`` first on the
 path, builds that root's kernels, and runs that root's own
 ``chip_smoke.kernel_phase`` (the middle flow at (8, 32, 32, 728) x 16
-blocks in bf16, each kernel alone) and ``chip_smoke.predictor_phase``
+blocks in bf16, each kernel alone), ``chip_smoke.predictor_phase``
 (``predict_masks`` on 16 synthetic 960x1280 images at batch 8, fused and
-unfused).  Both roots' timings go through this checkout's
-``chip_smoke.cuda_ms`` (calls queued behind a spin of the card, so the
-events time device work, not host gaps).  Each run prints one line
-``k4compare {...}``: the card's name and power limit, K4 whole, each
-kernel's ms and library ms, and ``predict_masks`` images/s.  Needs a
-CUDA card; imports no JAX.
+unfused), and, where the root has them, ``kernel_phase_f32`` and
+``predictor_f32_phase`` (the same in f32, TF32 off: K4 f32 whole, its
+two kernels, the f32 forward images/s fused and unfused).  Both roots'
+timings go through this checkout's ``chip_smoke.cuda_ms`` (calls queued
+behind a spin of the card, so the events time device work, not host
+gaps).  Each run prints one line ``k4compare {...}``: the card's name and
+power limit, K4 whole, each kernel's ms and library ms, and the
+predictors' images/s, in bf16 and f32.  Needs a CUDA card; imports no
+JAX.
 """
 
 import argparse
@@ -56,15 +59,36 @@ def one(root):
     _build.build()
     build_s = time.perf_counter() - t0
     buf = io.StringIO()
+    f32 = hasattr(CS, "kernel_phase_f32")
     with contextlib.redirect_stdout(buf):
         res = CS.kernel_phase(torch, F, MF, torch.device("cuda"),
                               torch.Generator().manual_seed(0))
         CS.predictor_phase(torch, MF, torch.Generator().manual_seed(1))
+        if f32:
+            res32 = CS.kernel_phase_f32(torch, F, MF, torch.device("cuda"),
+                                        torch.Generator().manual_seed(2))
+            CS.predictor_f32_phase(torch, MF,
+                                   torch.Generator().manual_seed(3))
     recs, k4 = res
-    pred = next(json.loads(line[len("predictor "):])
-                for line in buf.getvalue().splitlines()
-                if line.startswith("predictor {"))
+
+    def line(tag):
+        return next(json.loads(ln[len(tag) + 1:])
+                    for ln in buf.getvalue().splitlines()
+                    if ln.startswith(tag + " {"))
+    pred = line("predictor")
     keys = ("ms", "library_ms", "library_bf16_out_ms", "ms_os8", "bound_ms")
+    out32 = {}
+    if f32:
+        recs32, k4_32 = res32
+        p32 = line("predictor_f32")
+        out32 = {"k4_f32_ms": k4_32["ms"],
+                 "k4_f32_library_ms": k4_32["library_ms"],
+                 "kernels_f32": {r["name"]: {k: r.get(k) for k in keys}
+                                 for r in recs32},
+                 "f32_predict_masks_img_s": p32["predict_masks_img_s"],
+                 "f32_throughput_fused_img_s": p32["throughput_fused_img_s"],
+                 "f32_throughput_unfused_img_s":
+                     p32["throughput_unfused_img_s"]}
     print("k4compare " + json.dumps({
         "root": root, "card": card, "build_s": build_s,
         "k4_ms": k4["ms"], "k4_host_gaps_ms": k4.get("host_gaps_ms"),
@@ -72,7 +96,7 @@ def one(root):
         "kernels": {r["name"]: {k: r.get(k) for k in keys} for r in recs},
         "predict_masks_img_s": pred["predict_masks_img_s"],
         "predict_masks_unfused_img_s": pred["predict_masks_unfused_img_s"],
-        "throughput_fused_img_s": pred["throughput_fused_img_s"]}),
+        "throughput_fused_img_s": pred["throughput_fused_img_s"], **out32}),
         flush=True)
 
 

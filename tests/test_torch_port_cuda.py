@@ -39,6 +39,8 @@ def _random_folded(seed, nblk, c, device, dtype=torch.bfloat16):
         device, dtype if k in ("wdw", "wpw") else torch.float32)
         for k, v in f.items()}
     out["wpw_t"] = out["wpw"].transpose(-1, -2).contiguous()
+    if dtype == torch.float32:
+        out["wpw_t_split"] = torch.stack(MF.tf32_split(out["wpw_t"]), 2)
     return out
 
 
@@ -120,7 +122,7 @@ def test_stencil_is_exact_and_gemm_close(cuda_device, c, dtype):
                                                         dtype))
         zb = torch.randn(3, 7, 5, c, generator=g).to(cuda_device)
         w = torch.randn(c, c, generator=g).to(cuda_device)
-        w_t = w.t().contiguous()
+        w_t = torch.stack(MF.tf32_split(w.t().contiguous()), 0)
         c2 = torch.randn(c, generator=g).to(cuda_device)
         _assert_f32_gemm_close(MF.pw_gemm(zb, w_t, c2),
                                MF.pw_gemm_reference(zb, w, c2), zb, w)
@@ -173,8 +175,10 @@ def test_kernels_match_plain_at_ragged_shapes(cuda_device, bhw, c, dilation,
     s1 = torch.from_numpy(rng.uniform(0.5, 1.5, c).astype(np.float32)).to(
         cuda_device)
     c1, c2 = t(c, scale=0.1), t(c, scale=0.1)
-    w_t = w.t().contiguous()
     f32 = dtype == torch.float32
+    w_t = w.t().contiguous()
+    if f32:  # the f32 product reads the weight's TF32 parts
+        w_t = torch.stack(MF.tf32_split(w_t), 0)
     for zin, skip in ((x, None), (z, None), (z, x)):
         MF.reset_launches()
         zb = MF.dw_stencil(zin, w9, s1, c1, dilation, dtype)
@@ -256,16 +260,16 @@ def test_kernels_opt_in_to_large_shared_memory(cuda_device):
 
 
 def test_f32_gemm_shared_memory(cuda_device):
-    """mf_pw_gemm_f32 keeps two buffers of A's and W^T's transposed k-tiles,
-    16,896 bytes: under the 48 KB default (the source asserts it), so it
-    launches without cudaFuncSetAttribute, where the bf16 GEMM must opt
-    in.  A fresh process runs the f32 stencil and both f32 GEMM variants
-    once at K = N = 728."""
+    """mf_pw_gemm_f32 keeps 3 stages of A's and W's two parts' boxes,
+    191,536 bytes, and mf_dw_stencil_f32 its rows and output buffers, 72 KB
+    at C = 728: above the 48 KB default, a launch runs only after
+    cudaFuncSetAttribute.  A fresh process (no attribute set yet) runs the
+    f32 stencil and both f32 GEMM variants once at K = N = 728."""
     import os
     import subprocess
     import sys
-    plan = MF.pw_gemm_f32_plan(105, 728, 728)
-    assert plan["smem_bytes"] == 16896 <= 48 * 1024
+    assert MF.pw_gemm_f32_plan(105, 728, 728)["smem_bytes"] == 191536
+    assert MF.dw_stencil_f32_plan(1, 15, 7, 728, 1)["smem_bytes"] > 48 * 1024
     code = (
         "import torch; from cervical_tpu_torch.ops import middle_flow as MF\n"
         "torch.backends.cuda.matmul.allow_tf32 = False\n"
@@ -277,10 +281,10 @@ def test_f32_gemm_shared_memory(cuda_device):
         "zb = MF.dw_stencil(z, w9, v, v, 1, torch.float32)\n"
         "assert torch.equal(zb, MF.dw_stencil_reference(z, w9, v, v, 1,\n"
         "    torch.float32))\n"
-        "wt = w.t().contiguous()\n"
-        "torch.testing.assert_close(MF.pw_gemm(zb, wt, v),\n"
+        "ws = torch.stack(MF.tf32_split(w.t().contiguous()), 0)\n"
+        "torch.testing.assert_close(MF.pw_gemm(zb, ws, v),\n"
         "    MF.pw_gemm_reference(zb, w, v), rtol=1e-5, atol=1e-5)\n"
-        "torch.testing.assert_close(MF.pw_gemm(zb, wt, v, z),\n"
+        "torch.testing.assert_close(MF.pw_gemm(zb, ws, v, z),\n"
         "    MF.pw_gemm_reference(zb, w, v, z), rtol=1e-5, atol=1e-5)\n"
         "assert MF.F32_LAUNCHES == {'dw_stencil': 1, 'pw_gemm': 2}\n"
         "torch.cuda.synchronize(); print('ok')\n")
@@ -291,11 +295,71 @@ def test_f32_gemm_shared_memory(cuda_device):
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
 
 
+def test_f32_gemm_has_the_registers_setmaxnreg_needs(cuda_device):
+    """The f32 GEMM's setmaxnreg split (producer 24 + two consumer
+    warpgroups 240 over 384 threads) needs ptxas's 168 per thread; the host
+    refuses to launch otherwise."""
+    lib = MF._lib()
+    assert lib.mf_pw_gemm_f32_regs(0) == 168
+    assert lib.mf_pw_gemm_f32_regs(1) == 168
+    with pytest.raises(RuntimeError, match="setmaxnreg.*24 \\+ 2 x 240"):
+        MF._raise("mf_pw_gemm_f32", 20000 + 160)
+
+
+def test_card_split_equals_tf32_split(cuda_device):
+    """The GEMM's own split on the card (cvt.rna.tf32.f32, kernel
+    mf_tf32_split) equals the plain ``tf32_split`` bit for bit: normal
+    values over 60 decades, exact ties either side of zero, carries into
+    the exponent, zeros and values already TF32."""
+    g = torch.Generator().manual_seed(5)
+    k = torch.arange(1, 1000, dtype=torch.float64)
+    ties = 1.0 + k * 2.0 ** -10 + 2.0 ** -11
+    x = torch.cat([
+        torch.randn(200000, generator=g) * 10.0 ** torch.randint(
+            -30, 30, (200000,), generator=g).float(),
+        ties.float(), -ties.float(), (ties * 2.0 ** 40).float(),
+        torch.tensor([2 - 2 ** -12, -(4 - 2 ** -11), 0.0, -0.0, 1.0, -3.5])])
+    hi, lo = MF.tf32_split_on_card(x.to(cuda_device))
+    torch.cuda.synchronize()
+    phi, plo = MF.tf32_split(x)
+    assert torch.equal(hi.cpu().view(torch.int32), phi.view(torch.int32))
+    assert torch.equal(lo.cpu().view(torch.int32), plo.view(torch.int32))
+
+
+@pytest.mark.parametrize("final", [False, True], ids=["plain", "final"])
+def test_f32_gemm_at_os8_rows(cuda_device, final):
+    """The f32 GEMM at M = 32768 (batch 8 at output stride 8, 64 x 64), on
+    the fold's split weights: within ``_assert_f32_gemm_close``'s bound of
+    ``torch.matmul`` (TF32 off), and its largest error from an
+    f64-accumulated product at most twice ``torch.matmul``'s (the
+    smoke's check)."""
+    g = torch.Generator().manual_seed(8)
+    zb = torch.randn(8, 64, 64, 728, generator=g).to(cuda_device)
+    w = (torch.randn(728, 728, generator=g) * (1.5 / 728 ** 0.5)).to(
+        cuda_device)
+    c2 = (torch.randn(728, generator=g) * 0.1).to(cuda_device)
+    skip = torch.randn(8, 64, 64, 728, generator=g).to(cuda_device) \
+        if final else None
+    ws = torch.stack(MF.tf32_split(w.t().contiguous()), 0)
+    got = MF.pw_gemm(zb, ws, c2, skip)
+    torch.cuda.synchronize()
+    ref = MF.pw_gemm_reference(zb, w, c2, skip)
+    _assert_f32_gemm_close(got, ref, zb, w, skip)
+    exact = (zb.double().view(-1, 728) @ w.double()).view(ref.shape) \
+        + c2.double()
+    if final:
+        exact = exact + torch.relu(skip.double())
+    e_kernel = (got.double() - exact).abs().max().item()
+    e_mm = (ref.double() - exact).abs().max().item()
+    assert e_kernel <= 2 * e_mm, (e_kernel, e_mm)
+
+
 def test_f32_wrappers_refuse_mixed_types(cuda_device):
     """The kernels take a bf16 set or an f32 set: f32 taps with a bf16
     input or output, bf16 taps asked for an f32 zb, an f32 zb with a bf16
     weight or skip (and the other way round) raise TypeError; nothing is
-    cast to the other type's kernels."""
+    cast to the other type's kernels.  An f32 zb wants the weight's TF32
+    parts (2, N, K): an unsplit (N, K) weight raises."""
     z = torch.zeros(1, 4, 4, 16, device=cuda_device)
     zh = z.to(torch.bfloat16)
     w32 = torch.zeros(9, 16, device=cuda_device)
@@ -308,12 +372,15 @@ def test_f32_wrappers_refuse_mixed_types(cuda_device):
     with pytest.raises(TypeError):
         MF.dw_stencil(z, w32.to(torch.bfloat16), v, v, 1, torch.float32)
     w_t = torch.zeros(16, 16, device=cuda_device)
+    w_split = torch.zeros(2, 16, 16, device=cuda_device)
     with pytest.raises(TypeError):
         MF.pw_gemm(zh, w_t, v)  # bf16 zb, f32 weight
     with pytest.raises(TypeError):
-        MF.pw_gemm(z, w_t, v, skip_src=zh)  # f32 zb, bf16 skip
+        MF.pw_gemm(z, w_split, v, skip_src=zh)  # f32 zb, bf16 skip
     with pytest.raises(TypeError):
         MF.pw_gemm(zh, w_t.to(torch.bfloat16), v, skip_src=z)
+    with pytest.raises(ValueError, match="shape"):
+        MF.pw_gemm(z, w_t, v)  # f32 zb, an unsplit weight
     assert MF.LAUNCHES == {"dw_stencil": 0, "pw_gemm": 0}
 
 
@@ -344,6 +411,10 @@ def test_wrappers_check_their_inputs(cuda_device):
         folded = _random_folded(0, 1, 16, cuda_device)
         del folded["wpw_t"]
         MF.middle_flow_eval(zb, folded, 1)
+    with pytest.raises(KeyError, match="wpw_t_split"):
+        folded = _random_folded(0, 1, 16, cuda_device, torch.float32)
+        del folded["wpw_t_split"]
+        MF.middle_flow_eval(z, folded, 1)
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"],

@@ -133,59 +133,187 @@ def test_fold_keeps_a_k_major_copy():
 
 
 # ---------------------------------------------------------------------------
-# The f32 instances: mf_dw_stencil_f32 (the stencil's plan, above) and
-# mf_pw_gemm_f32
+# The f32 kernels: mf_pw_gemm_f32 (3xTF32 wgmma + TMA) and mf_dw_stencil_f32
+# (rows staged in shared memory by TMA)
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("k", [16, 728])
 @pytest.mark.parametrize("m", [1, 16, 8192, 32768])
 def test_f32_plan_covers_every_row_and_column_and_fits(m, k):
-    """One block per 128 x 128 output tile covering every row and column
-    (K = N), K in whole k-tiles of 8 (no ragged k-tile: K is a multiple of
-    8), two buffers of A's and W^T's transposed k-tiles within the 227 KB a
-    block may opt in to (and under the 48 KB default), rows of A, W^T and
-    the output 16-byte aligned for the kernel's 16-byte loads and stores,
-    256 threads of 8 x 8 accumulators filling the tile."""
+    """One block per 128 x 184 output tile covering every row and column
+    (K = N), K padded to whole 32-wide k-tiles (128 bytes of f32, the
+    swizzle's width; a multiple of wgmma's k8), three stages of A's, W_hi's
+    and W_lo's boxes within the 227 KB a block may opt in to (above the 48
+    KB default), TMA boxes at most 256 rows, and the setmaxnreg split
+    within the SM's registers."""
     g = MF.pw_gemm_f32_plan(m, k, k)
     gn, gm = g["grid"]
     assert gm * MF.FBM >= m > (gm - 1) * MF.FBM
-    assert gn * MF.FBN >= k > (gn - 1) * MF.FBN
-    assert g["k_tiles"] * MF.FBK == k
-    assert g["smem_bytes"] == 2 * 2 * MF.FBK * MF.FLD * 4 == 16896
-    assert g["smem_bytes"] <= 48 * 1024 <= 232448
-    assert all(b % 16 == 0 for b in g["row_bytes"])
-    # a padded shared row keeps 16-byte float4 reads aligned
-    assert (MF.FLD * 4) % 16 == 0 and MF.FLD >= MF.FBM
-    assert g["threads"] == MF.FTHREADS == 256
-    assert g["threads"] * 8 * 8 == MF.FBM * MF.FBN \
-        == g["tile"][0] * g["tile"][1]
-    # the copy: each thread moves 4 floats of one row of A's and of W^T's
-    # k-tile
-    assert g["threads"] * 4 == MF.FBM * MF.FBK == MF.FBN * MF.FBK
-    if (m, k) == (8192, 728):  # os16: 64 x 6 tiles
-        assert g["grid"] == (6, 64)
+    assert gn * MF.GBN >= k > (gn - 1) * MF.GBN
+    assert g["k_pad"] == g["k_tiles"] * MF.FBK and g["k_pad"] % 8 == 0
+    assert g["k_pad"] >= k > g["k_pad"] - MF.FBK
+    assert g["stage_bytes"] == (128 + 2 * 184) * 32 * 4 == 63488
+    assert g["smem_bytes"] == 1024 + 3 * 63488 + 16 * 3
+    assert 48 * 1024 < g["smem_bytes"] <= 232448
+    assert g["smem_bytes"] + g["stage_bytes"] > 232448  # a 4th stage won't
+    for box in (g["box_a"], g["box_w"]):
+        assert box[0] * 4 == 128 and box[1] <= 256
+    assert g["threads"] == 384
+    producer, consumer = g["regs"]
+    assert 128 * producer + 256 * consumer <= 65536
+    assert producer % 8 == consumer % 8 == 0 and 24 <= producer < consumer
+    # the consumer's two accumulator sets (92 each) and a k-tile's A
+    # fragments (hi and lo, 4 k8 steps x 4) fit its registers
+    assert 2 * 92 + 2 * 4 * 4 < consumer <= 255
+    if (m, k) == (8192, 728):  # os16: 64 x 4 tiles, 1.94 waves on 132 SMs
+        assert g["grid"] == (4, 64) and g["k_tiles"] == 23
 
 
-def test_f32_stash_is_free_of_bank_conflicts():
-    """The transposing stores of a warp (threads t = 0..31: row t // 2,
-    k-columns (t % 2) * 4 + i for each i) land in 32 distinct banks with
-    rows padded to FLD floats."""
-    for i in range(4):
-        banks = {(((t % 2) * 4 + i) * MF.FLD + t // 2) % 32 for t in range(32)}
-        assert len(banks) == 32, i
+def _swizzle128(row, byte):
+    """Byte offset of (row, byte in row) in a 128-byte-swizzled box whose
+    rows are 128 bytes: 16-byte chunk c of row r sits at chunk c ^ (r % 8)
+    (TMA's CU_TENSOR_MAP_SWIZZLE_128B, the layout wgmma's descriptor names)."""
+    return row * 128 + (((byte // 16) ^ (row % 8)) * 16) + byte % 16
+
+
+def _fragment_offset(j, warp, lane, s, q):
+    """``gemm_f32_kernel``'s A fragment load: consumer warpgroup j, its
+    warp and lane, k8 step s, register q; mirrors the source's
+    ``a_row + (q % 2) * 1024 + (((2 * s + q / 2) ^ g) << 4)``."""
+    g, t = lane // 4, lane % 4
+    a_row = (64 * j + 16 * warp + g) * 128 + t * 4
+    return a_row + (q % 2) * 1024 + (((2 * s + q // 2) ^ g) << 4)
+
+
+def test_f32_fragment_loads_read_the_swizzled_tile():
+    """Register q of a thread holds A's element (row 16 warp + lane / 4 +
+    8 (q % 2), k 8 s + lane % 4 + 4 (q // 2)) of its warpgroup's 64 rows
+    (wgmma's .tf32 A fragment), read at the byte where TMA's 128-byte
+    swizzle put it, for every warpgroup, warp, lane, k8 step and register;
+    no two threads read one element."""
+    seen = set()
+    for j in range(2):
+        for warp in range(4):
+            for lane in range(32):
+                for s in range(MF.FBK // 8):
+                    for q in range(4):
+                        row = 64 * j + 16 * warp + lane // 4 + 8 * (q % 2)
+                        k = 8 * s + lane % 4 + 4 * (q // 2)
+                        off = _fragment_offset(j, warp, lane, s, q)
+                        assert off == _swizzle128(row, 4 * k)
+                        seen.add(off)
+    assert len(seen) == MF.FBM * MF.FBK  # the whole 128 x 32 box
+
+
+def test_f32_fragment_loads_are_free_of_bank_conflicts():
+    """Each of a warp's 16 fragment loads (k8 step s, register q) reads 32
+    distinct banks: the swizzle spreads its 8 rows' chunks."""
+    for warp in range(4):
+        for s in range(MF.FBK // 8):
+            for q in range(4):
+                banks = {_fragment_offset(0, warp, lane, s, q) // 4 % 32
+                         for lane in range(32)}
+                assert len(banks) == 32, (warp, s, q)
+
+
+def test_f32_descriptors_step_inside_the_swizzle_atom():
+    """wgmma reads W's parts through 128-byte-swizzle descriptors: each box
+    starts on a 1024-byte atom in every stage (the 1024-aligned base + whole
+    atoms), a k8 step moves 32 bytes (2 in the >> 4 address field) and the
+    k-tile's 4 steps stay inside the atom's 128-byte rows; the highest
+    address fits the descriptor's 14-bit field (>> 4)."""
+    a_tile, w_tile = MF.FBM * MF.FBK * 4, MF.GBN * MF.FBK * 4
+    stage = a_tile + 2 * w_tile
+    assert a_tile % 1024 == 0 and w_tile % 1024 == 0
+    for st in range(MF.FSTAGES):
+        for part in (a_tile, a_tile + w_tile):
+            assert (st * stage + part) % 1024 == 0
+    step = 8 * 4
+    assert step >> 4 == 2 and (MF.FBK // 8) * step == 128
+    top = 1024 + MF.FSTAGES * stage
+    assert (top >> 4) < (1 << 14)
 
 
 def test_f32_plan_constants_match_the_source():
-    """``pw_gemm_f32_plan`` mirrors ``csrc/middle_flow.cu``'s constants."""
+    """``pw_gemm_f32_plan`` and ``dw_stencil_f32_plan`` mirror
+    ``csrc/middle_flow.cu``'s constants and expressions."""
     src = MF.SOURCE.read_text()
-    for name in ("FBM", "FBN", "FBK", "FTHREADS"):
+    for name in ("FBK", "FBM", "FSTAGES", "F_PRODUCER_REGS",
+                 "F_CONSUMER_REGS", "SW", "SQ_MAX", "S_OUT", "GBN"):
         m = re.search(rf"constexpr int {name} = (\d+);", src)
         assert m and int(m.group(1)) == getattr(MF, name), name
-    assert "constexpr int FLD = FBM + 4;" in src and MF.FLD == MF.FBM + 4
-    assert "constexpr int F_STAGE = 2 * FBK * FLD;" in src
-    assert "constexpr int F_SMEM = 2 * F_STAGE * (int)sizeof(float);" in src
-    assert "smem < F_SMEM || smem > 48 * 1024" in src and "K % FBK" in src
-    assert "static_assert(F_SMEM <= 48 * 1024" in src
+    for line in ("constexpr int FA_TILE = FBM * FBK * 4;",
+                 "constexpr int FW_TILE = GBN * FBK * 4;",
+                 "constexpr int F_STAGE = FA_TILE + 2 * FW_TILE;",
+                 "constexpr int F_SMEM = 1024 + FSTAGES * F_STAGE + 16 * "
+                 "FSTAGES;",
+                 "st + a_row + (q % 2) * 1024 + (((2 * s + q / 2) ^ g) << 4)",
+                 "const int a_row = (64 * j + 16 * wl + g) * 128 + t * 4;",
+                 "slot = ((SW + 2 * d) * cs * 4 + 127) / 128 * 128;",
+                 "in = (11 * cs * 4 + 127) / 128 * 128;",
+                 "out = in + (rows + 2) * slot;",
+                 "bars = out + S_OUT * SW * cs * 4;",
+                 "bytes = 128 + bars + 8 * (rows + 2);",
+                 "for (int q = 3; q <= SQ_MAX; q += 2)",
+                 "*grid = dim3(C / (4 * sq) * ((W + SW - 1) / SW), d * segs, "
+                 "B);"):
+        assert line in src, line
+    assert "smem < F_SMEM" in src
+
+
+@pytest.mark.parametrize("b,h,w,c,d", [
+    (8, 32, 32, 728, 1),    # os16
+    (8, 64, 64, 728, 2),    # os8 at dilation 2
+    (3, 7, 5, 8, 2),        # the CUDA tests' ragged shapes
+    (3, 13, 211, 40, 1),
+    (2, 14, 37, 24, 3),     # residues with unequal row counts
+])
+def test_stencil_f32_plan_covers_every_output_and_fits(b, h, w, c, d):
+    """Every (image, row, column, channel) belongs to exactly one block
+    and thread: slices of 4 sq channels tile C exactly (no idle lane), 32
+    columns a block, and for each residue of h mod d the segments of
+    ``rows`` steps reach its last row.  A block's rows + 2 input boxes,
+    output ring and barriers fit the 227 KB it may opt in to, each box at
+    most 256 wide with 16-byte rows, each slot 128-aligned for TMA."""
+    p = MF.dw_stencil_f32_plan(b, h, w, c, d)
+    sq = MF.stencil_f32_quads(c)
+    assert p["block"] == (MF.SW, sq) and p["slice"] == 4 * sq
+    assert c % p["slice"] == 0 and sq % 2 == 1 and sq <= MF.SQ_MAX
+    gx, gy, gz = p["grid"]
+    slices = c // p["slice"]
+    assert gx % slices == 0 and gz == b and gy % d == 0
+    wtiles = gx // slices
+    assert wtiles * MF.SW >= w > (wtiles - 1) * MF.SW
+    segs, rows = gy // d, p["rows"]
+    owner = {}
+    for r in range(d):
+        for seg in range(segs):
+            t0 = seg * rows
+            for t in range(t0, min(t0 + rows, -(-(h - r) // d))):
+                owner.setdefault(r + t * d, []).append((r, seg))
+    assert sorted(owner) == list(range(h))
+    assert all(len(v) == 1 for v in owner.values())
+    assert p["smem_bytes"] <= 232448
+    assert p["slot_bytes"] % 128 == 0
+    assert p["slot_bytes"] >= p["box_in"][0] * p["box_in"][1] * 4
+    for box in (p["box_in"], p["box_out"]):
+        assert box[1] <= 256 and (box[0] * 4) % 16 == 0
+    if (b, h, w, c, d) == (8, 32, 32, 728, 1):
+        assert p["grid"] == (14, 8, 8) and p["rows"] == 4
+        # 3 blocks an SM: 228 KB, 1 KB of it reserved per block
+        assert 3 * (p["smem_bytes"] + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("c,sq", [(728, 13), (8, 1), (24, 3), (40, 5),
+                                  (16, 1), (2048, 1), (104, 13)])
+def test_stencil_f32_slices_leave_no_idle_lane(c, sq):
+    """The slice's quads: the largest odd divisor of C / 4 up to 13, so
+    every lane of every block has 4 channels of its own, and a column's
+    odd number of 16-byte chunks spreads a warp's loads over all banks."""
+    assert MF.stencil_f32_quads(c) == sq
+    assert (c // 4) % sq == 0
+    banks = {((lane * sq) % 8) for lane in range(8)}  # 16-byte chunks
+    assert len(banks) == 8
 
 
 @pytest.mark.parametrize("m,k,n,match", [(105, 12, 16, "multiples of 8"),
@@ -220,8 +348,9 @@ def test_f32_wrappers_refuse_before_building(case):
 
 
 def test_f32_fold_feeds_the_f32_kernels():
-    """A fold at compute_dtype=float32 gives f32 taps and an f32 K-major
-    weight: the f32 set the wrappers take."""
+    """A fold at compute_dtype=float32 gives f32 taps, an f32 K-major
+    weight and its TF32 parts (hi, lo) stacked K-major: the f32 set the
+    wrappers take; the bf16 fold has no parts."""
     from cervical_tpu_torch.models.backbones.xception import XceptionBlock
     from torch_port_helpers import random_state
 
@@ -235,3 +364,10 @@ def test_f32_fold_feeds_the_f32_kernels():
     assert f["wdw"].dtype == f["wpw_t"].dtype == torch.float32
     assert f["wdw"][0, :9].is_contiguous() and f["wpw_t"][0, 1].is_contiguous()
     assert torch.equal(f["wpw_t"], f["wpw"].transpose(-1, -2))
+    split = f["wpw_t_split"]
+    assert split.shape == (1, 3, 2, 16, 16) and split.dtype == torch.float32
+    assert split[0, 1].is_contiguous()
+    hi, lo = MF.tf32_split(f["wpw_t"])
+    assert torch.equal(split[:, :, 0], hi) and torch.equal(split[:, :, 1], lo)
+    assert not (split.view(torch.int32) & 0x1FFF).any()
+    assert "wpw_t_split" not in MF.fold_middle_flow(mini, count=1)

@@ -10,6 +10,7 @@ import os
 import struct
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -31,10 +32,30 @@ def lib():
     return native
 
 
+def _load_when_written(J, limit=60.0, quiet=1.0):
+    """Load the JAX package's loader once its library file holds still.
+    Its build runs ``g++ -o`` straight onto ``_fastloader.so``, and another
+    test process (``test_native_loader.py``) may be writing it: a load then
+    fails with an ``OSError`` ("file too short"), which the module caches.
+    Wait, at most ``limit`` seconds, until the file's size has not changed
+    for ``quiet`` seconds, clear the cached reason and load again; any
+    other reason (no ``g++``, no codecs) stands."""
+    deadline = time.monotonic() + limit
+    last = None
+    while (not J.available() and J.unavailable_reason().startswith("OSError")
+           and time.monotonic() < deadline):
+        time.sleep(quiet)
+        size = os.path.getsize(J._SO) if os.path.exists(J._SO) else -1
+        if size > 0 and size == last:
+            J._lib, J._unavailable_reason = None, None
+        last = size
+    return J.available()
+
+
 @pytest.fixture(scope="module")
 def jax_native():
     from cervical_tpu import native as J
-    if not J.available():
+    if not _load_when_written(J):
         pytest.skip(f"the JAX package's loader: {J.unavailable_reason()}")
     return J
 

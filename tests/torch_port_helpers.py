@@ -153,3 +153,38 @@ def run_ranks(task, world, workdir, spec, timeout=240):
             + log[-4000:]
     return [torch.load(os.path.join(workdir, f"out{r}.pt"),
                        weights_only=False) for r in range(world)]
+
+
+def _toward_zero_f32(x):
+    """f64 ``x`` cut to an f32 value toward zero (as f64)."""
+    f = x.float()
+    over = f.double().abs() > x.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)),
+                       f).double()
+
+
+def split_gemm_model(a, w, k_tile=32, promote=True):
+    """CPU model of ``mf_pw_gemm_f32``'s sum ``a @ w`` (a (M, K), w (K, N),
+    f32) from the TF32 parts of both (``middle_flow.tf32_split``): per k8
+    step the products A_hi W_lo, A_lo W_hi, A_hi W_hi (in that order), each
+    step's 8 products (exact in f64) added to the accumulator and the
+    result cut to f32 toward zero, as a tensor core's adder that truncates
+    rather than rounds would (the pessimistic case).  With ``promote`` each
+    k-tile of ``k_tile`` starts a fresh accumulator, which is then added to
+    an f32 sum rounded to nearest, as the kernel does; without, one
+    accumulator runs over all of K."""
+    from cervical_tpu_torch.ops.middle_flow import tf32_split
+    ah, al = (t.double() for t in tf32_split(a))
+    wh, wl = (t.double() for t in tf32_split(w))
+    m, k = a.shape
+    total = torch.zeros(m, w.shape[1])
+    part = torch.zeros(m, w.shape[1], dtype=torch.float64)
+    for k0 in range(0, k, 8):
+        if promote and k0 % k_tile == 0:
+            part = torch.zeros_like(part)
+        s = slice(k0, min(k0 + 8, k))
+        for x, y in ((ah, wl), (al, wh), (ah, wh)):
+            part = _toward_zero_f32(part + x[:, s] @ y[s])
+        if promote and ((k0 + 8) % k_tile == 0 or k0 + 8 >= k):
+            total = total + part.float()
+    return total if promote else part.float()
