@@ -19,6 +19,7 @@ the JAX package's ``_flat_sharding`` gives each device of the data axis.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
@@ -88,20 +89,30 @@ class ResidentSegData:
     @classmethod
     def from_dataset(cls, dataset, batch_size: int, device,
                      train: bool = True, log=None) -> "ResidentSegData":
-        """Load a ``VOCSegDataset``-like object whole (one host copy) and
-        upload it."""
-        n = len(dataset)
-        im0, lb0 = dataset.load(0)
-        images = np.empty((n,) + im0.shape, np.uint8)
-        labels = np.empty((n,) + lb0.shape, np.uint8)
-        images[0], labels[0] = im0, lb0
-        for i in range(1, n):
-            images[i], labels[i] = dataset.load(i)
+        """Upload a ``VOCSegDataset``-like object whole.  An
+        ``ArraySegDataset``'s arrays go up as they are; any other dataset
+        is first loaded image by image into one host copy.  ``log`` gets
+        the set's size and the upload's seconds."""
+        from cervical_tpu_torch.data.voc import ArraySegDataset
+        if isinstance(dataset, ArraySegDataset):
+            images, labels = dataset.images, dataset.labels
+        else:
+            n = len(dataset)
+            im0, lb0 = dataset.load(0)
+            images = np.empty((n,) + im0.shape, np.uint8)
+            labels = np.empty((n,) + lb0.shape, np.uint8)
+            images[0], labels[0] = im0, lb0
+            for i in range(1, n):
+                images[i], labels[i] = dataset.load(i)
+        t0 = time.perf_counter()
+        out = cls.from_arrays(images, labels, batch_size, device, train=train)
+        if out.images.device.type == "cuda":
+            torch.cuda.synchronize(out.images.device)
         if log:
-            log(f"resident upload: {n} images, "
-                f"{(images.nbytes + labels.nbytes) / 1e9:.2f} GB")
-        return cls.from_arrays(images, labels, batch_size, device,
-                               train=train)
+            log(f"resident upload: {len(images)} images, "
+                f"{(images.nbytes + labels.nbytes) / 1e9:.2f} GB in "
+                f"{time.perf_counter() - t0:.2f} s")
+        return out
 
     def rechunk(self, batch_size: int) -> "ResidentSegData":
         """The same data read at another batch size (the freeze -> unfreeze

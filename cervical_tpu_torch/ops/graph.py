@@ -52,6 +52,14 @@ def mean_agg_matrix(adj):
     return adj / deg
 
 
+def edge_index_from_adjacency(adj):
+    """The (2, E) int64 COO edge index of a dense adjacency — the
+    torch_geometric form of the graph, for interop and debugging; edges in
+    row-major order (source, then target), as ``np.nonzero`` gives them."""
+    src, dst = np.nonzero(np.asarray(adj))
+    return torch.from_numpy(np.stack([src, dst], axis=0).astype(np.int64))
+
+
 def sage_conv(x, agg, w_neigh, w_root, bias=None):
     """Dense GraphSAGE-mean convolution ``mean_agg(x) @ w_neigh + x @ w_root
     (+ bias)``: PyG ``SAGEConv(in, out)`` with ``w_neigh = lin_l.weight.T``

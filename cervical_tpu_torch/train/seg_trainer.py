@@ -206,6 +206,24 @@ def _class_weights(weights: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(weights, dtype=torch.float32).to(device)
 
 
+def seg_loss_fn(cfg: SegTrainConfig, logits, labels, one_hot,
+                sample_weights=None):
+    """The reference-shaped loss ``(total, main)``: focal or CE
+    (``cfg.focal_loss``) with the config's class weights, plus dice
+    (``cfg.dice_loss``) over ``one_hot`` (num_classes + 1 channels);
+    ``logits`` NHWC at the labels' resolution.  The train and eval steps
+    use :func:`seg_loss_bundle_fn`, which computes the same in one pass."""
+    cls_w = _class_weights(tuple(cfg.cls_weights), logits.device)
+    nc = cfg.data.num_classes
+    loss = losses.focal_loss if cfg.focal_loss else losses.cross_entropy_loss
+    main = loss(logits, labels, cls_w, nc, sample_weights=sample_weights)
+    total = main
+    if cfg.dice_loss:
+        total = total + losses.dice_loss(logits, one_hot,
+                                         sample_weights=sample_weights)
+    return total, main
+
+
 def seg_loss_bundle_fn(cfg: SegTrainConfig, logits, labels,
                        sample_weights=None, resize_to=None,
                        return_preds: bool = False, data=None):

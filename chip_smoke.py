@@ -100,6 +100,25 @@
    cervical_tpu_torch.train_seg`` on the same data, sent SIGTERM once
    epoch 1 is logged, must finish epoch 2, checkpoint it and exit 0.
    Prints seconds per epoch and the peak memory.
+7b. Runs the reference segmentation protocol (``protocol`` phase, the
+   JAX package's defaults: the einsum augmentation, no kernel): (a)
+   ``run_seg_protocol.main`` in this process at its full 6,720 / 840
+   synthetic 512² images, resident on the card, for one frozen epoch at
+   batch 16 and one unfrozen at batch 8: finite losses, no kernel
+   launched, each epoch's calls reading every train image once, 8-step
+   calls captured at both batch sizes; prints the upload's GB and
+   seconds, ``data_prep_s``, each epoch's train and val seconds, images/s
+   and steady ms/step beside the SM clock and power draw
+   (``nvidia-smi``), the card's peak memory and the host's resident set
+   (sampled every 0.1 s, and ``getrusage``); then, on that trainer, the
+   card memory each resident shuffle mode (gather, images, chunks, none)
+   adds through its shuffle and one 8-step call, and the predictor
+   callback's seconds over 840 JPEG/PNG pairs written to disk.  (b)
+   ``python -m cervical_tpu_torch.run_seg_protocol`` at 64 / 16 512²
+   images for 10 epochs (5 frozen), sent SIGTERM while epoch 6 runs:
+   it must stop after epoch 6, checkpointed, and exit 0; then
+   ``--resume`` runs epochs 7-10 and writes the epoch-10 mIoU and
+   predictor-mIoU lines, ``ep010-*`` and ``protocol_summary.json``.
 8. Drives the fusion classifier (``fusion`` phase) at
    ``FusionTrainConfig()``'s width (four modalities, in_features 1024,
    hidden 512, 4 classes, batch 8) on a synthetic 1,758-patient cohort
@@ -1771,6 +1790,394 @@ def fit_phase(torch, W, MF, input_shape=(512, 512), n_train=24, n_val=8,
         res["cli_sigterm_at_s"] = sent
         print("fit " + json.dumps(res))
         return launches
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def sampler(read, period):
+    """A thread calling ``read()`` every ``period`` seconds; returns
+    ``(stop, samples)``: ``samples`` the (perf_counter, value) pairs so
+    far, the first taken at once, and ``stop()`` ends the thread after one
+    last sample."""
+    import threading
+    samples = [(time.perf_counter(), read())]
+    done = threading.Event()
+
+    def run():
+        while not done.wait(period):
+            samples.append((time.perf_counter(), read()))
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+
+    def stop():
+        done.set()
+        t.join()
+        samples.append((time.perf_counter(), read()))
+    return stop, samples
+
+
+def rss_bytes():
+    """This process's resident set."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def sm_clock_power():
+    """The card's SM clock (MHz) and power draw (W), or None."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=30).stdout
+    try:
+        return tuple(float(v) for v in out.splitlines()[0].split(","))
+    except (IndexError, ValueError):
+        return None
+
+
+def in_window(samples, t0, t1):
+    return [v for t, v in samples if t0 <= t <= t1 and v is not None]
+
+
+def protocol_lines(save_dir):
+    with open(os.path.join(save_dir, "protocol.log")) as f:
+        return f.read().splitlines()
+
+
+def protocol_phase(torch, W, MF, card, train_n=6720, val_n=840, size=512,
+                   small_n=(64, 16), device="cuda"):
+    """The reference segmentation protocol (``python -m
+    cervical_tpu_torch.run_seg_protocol``, the JAX package's defaults: the
+    einsum augmentation, no kernel).  (a) ``main`` in this process at
+    ``train_n`` / ``val_n`` x ``size``² for one frozen and one unfrozen
+    epoch: finite losses, the upload's GB and seconds, each epoch's train
+    and val seconds, train images/s, every train image read once per
+    epoch at both batch sizes, the 8-step calls captured at both, the
+    card's and the host's peak memory; then on its trainer the peak card
+    memory of each resident shuffle mode (the set made on the card), and
+    the predictor callback over ``val_n`` files on disk.  (b) the CLI at
+    ``small_n`` images in a subprocess, sent SIGTERM while epoch 6 of 10
+    runs, then ``--resume`` to epoch 10."""
+    import gc
+    import resource
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import numpy as np
+    from cervical_tpu_torch import run_seg_protocol as RP
+    from cervical_tpu_torch.data.resident import ResidentSegData
+    from cervical_tpu_torch.data.voc import VOCSegDataset
+    from cervical_tpu_torch.train.callbacks import PredictorMiouCallback
+    from cervical_tpu_torch.train.checkpoints import CheckpointManager
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+
+    cuda = device != "cpu"
+    dev = torch.device(device)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_protocol_")
+    proc = None
+    res = {"card": card}
+    try:
+        # (a) full scale in this process
+        calls, evals, epochs, trainers, fit_at = [], [], [], [], []
+        originals = {k: getattr(SegTrainer, k) for k in
+                     ("_resident_train", "_resident_eval", "run_epoch", "fit")}
+
+        def train_call(self, data, frozen, idx, lr, gather):
+            calls.append((frozen, data.batch_size, gather,
+                          np.array(idx, np.int64), time.perf_counter()))
+            return originals["_resident_train"](self, data, frozen, idx, lr,
+                                                gather)
+
+        def eval_call(self, data, pos, k):
+            evals.append(time.perf_counter())
+            return originals["_resident_eval"](self, data, pos, k)
+
+        def run_epoch(self, train, val, epoch, frozen, lr):
+            evals.clear()
+            t0 = time.perf_counter()
+            r = originals["run_epoch"](self, train, val, epoch, frozen, lr)
+            t1 = time.perf_counter()
+            epochs.append({"frozen": frozen, "batch": train.batch_size,
+                           "t": (t0, evals[0], t1),
+                           "seconds": t1 - t0, "train_s": evals[0] - t0,
+                           "val_s": t1 - evals[0],
+                           "images": train.num_chunks * train.batch_size,
+                           "train_loss": r.train_loss,
+                           "val_loss": r.val_loss})
+            return r
+
+        def fit(self, *a, **kw):
+            trainers.append(self)
+            fit_at.append(time.perf_counter())
+            return originals["fit"](self, *a, **kw)
+        for name, fn in (("_resident_train", train_call),
+                         ("_resident_eval", eval_call),
+                         ("run_epoch", run_epoch), ("fit", fit)):
+            setattr(SegTrainer, name, fn)
+        save = os.path.join(tmp, "full")
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        W.reset_launches()
+        MF.reset_launches()
+        stop_rss, rss = sampler(rss_bytes, 0.1)
+        stop_smi, smi = sampler(sm_clock_power if cuda else lambda: None,
+                                1.0)
+        t0 = time.perf_counter()
+        try:
+            summary = RP.main(["--save_dir", save, "--epochs", "2",
+                               "--freeze_epoch", "1", "--no_predictor",
+                               "--train_n", str(train_n), "--val_n",
+                               str(val_n), "--size", str(size),
+                               "--device", device])
+        finally:
+            for name, fn in originals.items():
+                setattr(SegTrainer, name, fn)
+            stop_rss()
+            stop_smi()
+        sync()
+        main_s = time.perf_counter() - t0
+        launched = {**W.LAUNCHES, **MF.LAUNCHES}
+        card_peak = torch.cuda.max_memory_allocated() / 1e9 if cuda else None
+        log = protocol_lines(save)
+        upload = [m.split("] ", 1)[1] for m in log if "resident upload" in m]
+        check(summary["epochs_run"] == 2 and
+              summary["n_unfrozen_epochs"] == 1 and len(epochs) == 2 and
+              [e["frozen"] for e in epochs] == [True, False] and
+              all(math.isfinite(e[k]) for e in epochs
+                  for k in ("train_loss", "val_loss")),
+              f"protocol epochs {epochs}, summary {summary}")
+        check(len(upload) == 2 and upload[0].startswith(
+            f"resident upload: {train_n} images"), f"upload lines {upload}")
+        check(not any(launched.values()),
+              f"the protocol launched kernels: {launched}")
+        for e, (frozen, b) in zip(epochs, ((True, 16), (False, 8))):
+            mine = [c for c in calls if c[0] == frozen]
+            rows = np.sort(np.concatenate([c[3].ravel() for c in mine]))
+            check(all(c[1:3] == (b, True) for c in mine) and
+                  np.array_equal(rows, np.arange(train_n // b * b)),
+                  f"epoch at batch {b}: {len(mine)} calls did not read "
+                  "every train image once")
+            # the steady rate: dispatches of the epoch's second half, where
+            # the host waits on the card (pipeline_depth calls in flight)
+            at = [c[4] for c in mine]
+            gaps = np.diff(at[len(at) // 2:])
+            ta, tb, tc = e.pop("t")
+            clocks = in_window(smi, ta, tb)
+            e.update({
+                "calls": len(mine),
+                "images_per_s": e["images"] / e["train_s"],
+                "steady_ms_per_step": float(np.median(gaps)) * 1e3 / 8
+                if len(gaps) else None,
+                "sm_mhz_median_min": [float(np.median([v[0] for v in clocks])),
+                                      min(v[0] for v in clocks)]
+                if clocks else None,
+                "power_w_median_max": [
+                    float(np.median([v[1] for v in clocks])),
+                    max(v[1] for v in clocks)] if clocks else None,
+                "host_rss_peak_gb": max(in_window(rss, ta, tc)) / 1e9})
+        rss_peak = max(v for _, v in rss)
+        rss_at_fit = max(in_window(rss, t0, fit_at[0]))
+        tr = trainers[0]
+        graphs = sorted({k[:4] for k in tr._graphs if k[0] == "res"})
+        check(not cuda or all(any(g[1] == f and g[3] == b for g in graphs)
+                              for f, b in ((True, 16), (False, 8))),
+              f"captured resident calls {graphs}")
+        res["a"] = {"summary": summary, "main_s": main_s, "epochs": epochs,
+                    "upload": upload, "graphs": [list(g) for g in graphs],
+                    "card_peak_gb": card_peak,
+                    "host_rss_before_gb": rss[0][1] / 1e9,
+                    "host_rss_data_gb": rss_at_fit / 1e9,
+                    "host_rss_peak_gb": rss_peak / 1e9,
+                    "host_ru_maxrss_gb": resource.getrusage(
+                        resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9}
+        print(f"protocol (a) on {card}: {train_n} / {val_n} x {size}^2, "
+              f"2 epochs in {main_s:.1f} s, data_prep_s "
+              f"{summary['data_prep_s']}; {upload[0]}; "
+              + "; ".join(f"{'frozen' if e['frozen'] else 'unfrozen'} "
+                          f"epoch {e['seconds']:.2f} s (train "
+                          f"{e['train_s']:.2f} s in {e['calls']} calls, "
+                          f"{e['images_per_s']:.1f} images/s, steady "
+                          f"{e['steady_ms_per_step']} ms/step, SM "
+                          f"{e['sm_mhz_median_min']} MHz, "
+                          f"{e['power_w_median_max']} W; val "
+                          f"{e['val_s']:.2f} s), losses "
+                          f"{e['train_loss']:.4f} / {e['val_loss']:.4f}"
+                          for e in epochs)
+              + f"; peak card memory {card_peak} GB, host RSS peak "
+              f"{rss_peak / 1e9:.2f} GB (at the start "
+              f"{rss[0][1] / 1e9:.2f}, with the data made "
+              f"{rss_at_fit / 1e9:.2f})")
+        tr._graphs.clear()
+        gc.collect()
+
+        # the resident shuffle modes: the set's peak on the card through
+        # each mode's shuffle and one 8-step call (both calls captured first)
+        g = torch.Generator(device=dev).manual_seed(17)
+        rs = ResidentSegData(
+            torch.randint(0, 256, (train_n, size, size, 3),
+                          dtype=torch.uint8, device=dev, generator=g),
+            torch.randint(0, 5, (train_n, size, size), dtype=torch.uint8,
+                          device=dev, generator=g), None, 8, train_n)
+        c = rs.num_chunks
+        rng = np.random.default_rng(3)
+        modes = {}
+
+        def peak_of(fn):
+            """(peak GB allocated above the start, seconds, fn's result)."""
+            sync()
+            if cuda:
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            t = time.perf_counter()
+            out = fn()
+            sync()
+            s = time.perf_counter() - t
+            return ((torch.cuda.max_memory_allocated() - base) / 1e9
+                    if cuda else None), s, out
+
+        def call(idx, gather):
+            return lambda: tr._resident_train(rs, False, idx, 1e-6, gather)
+        k = min(8, c)
+        modes["capture_gather"] = peak_of(call(
+            np.arange(k * 8).reshape(k, 8), True))[:2]
+        modes["capture_batches"] = peak_of(call(np.arange(k), False))[:2]
+        # each mode's per-epoch shuffle, then its first call's indices
+        shuffles = {
+            "gather": lambda: rng.permutation(c * 8).reshape(c, 8),
+            "images": lambda: rs.shuffle_(tr.shuffle_generator) and
+            np.arange(c),
+            "chunks": lambda: rng.permutation(c),
+            "none": lambda: np.arange(c)}
+        for mode, shuffle in shuffles.items():
+            gb, s, order = peak_of(shuffle)
+            modes[mode] = {"shuffle": (gb, s), "call": peak_of(call(
+                order[:k], mode == "gather"))[:2]}
+        set_gb = (rs.images.nbytes + rs.labels.nbytes) / 1e9
+        tr._graphs.clear()  # they hold the set
+        del rs
+        gc.collect()
+        res["shuffle_modes"] = {"set_gb": set_gb, **modes}
+        print(f"resident shuffle modes ({train_n} x {size}^2 on the card, "
+              f"{set_gb:.2f} GB): "
+              + "; ".join(f"{m}: shuffle +{v['shuffle'][0]} GB in "
+                          f"{v['shuffle'][1]:.3f} s, 8-step call +"
+                          f"{v['call'][0]} GB in {v['call'][1]:.3f} s"
+                          for m, v in modes.items() if "shuffle" in v)
+              + "; captures " + ", ".join(
+                  f"{m} +{modes[m][0]} GB" for m in modes
+                  if m.startswith("capture")))
+
+        # the predictor callback over val_n JPEG/PNG pairs on disk, as
+        # every eval epoch (10, 20, ...) of the protocol runs it
+        val_dir = os.path.join(tmp, "val_voc")
+        vi, vl = RP.synth_seg_arrays(val_n, size, seed=77, log=None)
+        t = time.perf_counter()
+        RP.write_val_to_disk(val_dir, vi, vl, log=lambda *m: None)
+        write_s = time.perf_counter() - t
+        del vi, vl
+        ds = VOCSegDataset(val_dir, [f"{i:06d}" for i in range(val_n)],
+                           stage_hw=(size, size))
+        cb = PredictorMiouCallback(os.path.join(tmp, "cb"), ds, 10,
+                                   device=dev)
+        runs = []
+        for epoch in (9, 19):
+            t = time.perf_counter()
+            miou = cb.run(tr.cfg, tr.state, epoch, log=lambda *m: None)
+            sync()
+            runs.append(time.perf_counter() - t)
+            check(0.0 <= miou <= 1.0, f"predictor mIoU {miou}")
+        res["predictor_callback"] = {"images": val_n, "write_s": write_s,
+                                     "first_s": runs[0], "next_s": runs[1],
+                                     "miou": miou}
+        print(f"predictor callback over {val_n} files: {runs[0]:.2f} s "
+              f"first, {runs[1]:.2f} s next (val set written in "
+              f"{write_s:.2f} s), mIoU {miou:.4f}")
+        del cb, tr, trainers
+        shutil.rmtree(save, ignore_errors=True)
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # (b) the CLI at small n: SIGTERM while epoch 6 runs (1 s after
+        # epoch 5's line: the loop tests its stop flag just after printing
+        # that line), then --resume to epoch 10
+        sdir = os.path.join(tmp, "small")
+        cmd = [sys.executable, "-u", "-m",
+               "cervical_tpu_torch.run_seg_protocol", "--device", device,
+               "--save_dir", sdir, "--train_n", str(small_n[0]),
+               "--val_n", str(small_n[1]), "--size", str(size),
+               "--epochs", "10", "--freeze_epoch", "5"]
+        env = dict(os.environ, PYTHONPATH=HERE)
+        runs = []
+        for extra in ([], ["--resume"]):
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd + extra, cwd=HERE, env=env,
+                                    text=True, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT)
+            watchdog = threading.Timer(600, proc.kill)
+            watchdog.start()
+            out, sent = [], None
+            for line in proc.stdout:
+                out.append(line)
+                if not extra and sent is None and "] Epoch 5/10" in line:
+                    time.sleep(1.0)
+                    proc.send_signal(signal.SIGTERM)
+                    sent = time.perf_counter() - t0
+            rc = proc.wait()
+            watchdog.cancel()
+            proc = None
+            runs.append({"rc": rc, "seconds": time.perf_counter() - t0,
+                         "sigterm_at_s": sent, "text": "".join(out)})
+        first, second = runs
+        with open(os.path.join(sdir, "protocol_summary.json")) as f:
+            summary = json.load(f)
+        ep = [m.split("] ")[1].split()[1] for m in protocol_lines(sdir)
+              if "] Epoch " in m]
+        check(first["rc"] == 0 and first["sigterm_at_s"] is not None and
+              "stopped after epoch 6" in first["text"] and
+              "Epoch 7/10" not in first["text"],
+              f"protocol CLI exit {first['rc']}, SIGTERM at "
+              f"{first['sigterm_at_s']}; tail:\n{first['text'][-3000:]}")
+        check(second["rc"] == 0 and "resumed from epoch 6" in second["text"]
+              and ep == [f"{i}/10" for i in range(1, 11)],
+              f"resumed CLI exit {second['rc']}, epochs {ep}; tail:\n"
+              f"{second['text'][-3000:]}")
+
+        def lines(name):
+            with open(os.path.join(sdir, name)) as f:
+                return f.read().splitlines()
+        losses = [float(v) for v in lines("epoch_loss.txt")]
+        names = os.listdir(sdir)
+        extra = CheckpointManager(sdir).restore("last_epoch_weights")["extra"]
+        check(len(losses) == 10 and all(map(math.isfinite, losses)) and
+              len(lines("epoch_miou.txt")) == 1 and
+              len(lines("epoch_miou_predictor.txt")) == 1 and
+              any(n.startswith("ep010-") for n in names) and
+              extra["epoch"] == 9 and summary["epochs_run"] == 4 and
+              len(summary["predictor_miou"]) == 1,
+              f"resumed run: losses {losses}, files {sorted(names)}, "
+              f"checkpoint {extra}, summary {summary}")
+        res["b"] = {"first_s": first["seconds"],
+                    "sigterm_at_s": first["sigterm_at_s"],
+                    "resume_s": second["seconds"], "summary": summary}
+        print(f"protocol CLI ({small_n[0]} / {small_n[1]} x {size}^2): "
+              f"SIGTERM {first['sigterm_at_s']:.1f} s after start, stopped "
+              f"after epoch 6, exit 0 in {first['seconds']:.1f} s; --resume "
+              f"ran epochs 7-10 in {second['seconds']:.1f} s, mIoU "
+              f"{summary['miou_trajectory']}, predictor "
+              f"{summary['predictor_miou']}")
+        print("protocol " + json.dumps(res))
+        return res
     finally:
         if proc is not None and proc.poll() is None:
             proc.kill()
@@ -3494,6 +3901,7 @@ def main():
     # the slice's main path: K1-K3 as launched by fit; K5 by
     # augment_batch_kernels(fused=True), its one caller (warp phase)
     path_launches = timed("fit", fit_phase, torch, W, MF)
+    timed("protocol", protocol_phase, torch, W, MF, card)
     timed("fusion", fusion_phase, torch, card)
     timed("mobilenet", mobilenet_phase, torch,
           torch.Generator().manual_seed(14), card, served)

@@ -56,10 +56,11 @@ def test_port_sources_name_no_reference_package():
 
 def test_entry_points_default_to_cuda():
     from cervical_tpu_torch.inference.predictor import SegPredictor
-    from cervical_tpu_torch import predict
+    from cervical_tpu_torch import predict, run_seg_protocol
     from cervical_tpu_torch.train.seg_trainer import SegTrainer, create_state
     assert inspect.signature(SegPredictor).parameters["device"].default == "cuda"
     assert "device" in predict._CLI_KEYS
+    assert run_seg_protocol.parse_args([]).device == "cuda"
     for fn in (SegTrainer, create_state):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -75,6 +76,7 @@ def test_training_slice_modules_import_alone():
         " cervical_tpu_torch.train.seg_trainer, cervical_tpu_torch.train.schedules,"
         " cervical_tpu_torch.train.checkpoints, cervical_tpu_torch.train.callbacks,"
         " cervical_tpu_torch.train.torch_import, cervical_tpu_torch.train_seg,"
+        " cervical_tpu_torch.run_seg_protocol,"
         " cervical_tpu_torch.utils.seeding, cervical_tpu_torch.utils.logging\n"
         "assert W._lib_handle is None\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
