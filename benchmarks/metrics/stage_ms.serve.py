@@ -1,0 +1,9 @@
+"""stage_ms.serve: the card-clock ms of the predictor's ``predict.stage``
+span (pageable upload, letterbox, scale, cast) per ``predict.request`` in
+the traced window.  Nothing where the program records no such span."""
+
+from benchmarks.harness import spans
+
+
+def read(summary, facts):
+    return spans.device_ms_per(("predict.stage",), "predict.request")

@@ -74,7 +74,9 @@ The data-preparation path:
   the label audit, the offline 8x/5x augmentation; the CLI is ``python -m
   cervical_tpu_torch.prepare_dataset``;
 * ``cervical_tpu_torch.utils.profiling`` — ``trace`` (a ``torch.profiler``
-  Chrome trace) and ``ThroughputMeter``.
+  Chrome trace) and ``span``, the program's own spans inside it (the
+  predictor's request phases, the epoch's train and val parts, each train
+  call's dispatch, the middle flow's host time), read by ``span_totals``.
 
 The parallel layouts (``cervical_tpu_torch.parallel``), one process per
 device over ``torch.distributed``:

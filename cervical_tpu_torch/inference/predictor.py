@@ -24,6 +24,7 @@ from cervical_tpu_torch.config import SegTrainConfig
 from cervical_tpu_torch.ops.image import (letterbox_image, preprocess_input,
                                           unletterbox_logits)
 from cervical_tpu_torch.train.seg_trainer import _dtype, build_model
+from cervical_tpu_torch.utils.profiling import span
 
 # 21-color VOC palette head (deeplab.py:66-69)
 DEFAULT_COLORS = [
@@ -86,14 +87,16 @@ class SegPredictor:
         """(B, H, W, 3) preprocessed NHWC in the compute dtype -> (B, H, W,
         num_classes) f32 softmax probs.  The NCHW view of a contiguous NHWC
         batch is already ``channels_last``."""
-        return self._serve(images)
+        with span("predict.forward", self.device):
+            return self._serve(images)
 
     def _stage(self, images: np.ndarray) -> torch.Tensor:
         """uint8 (..., ih, iw, 3) -> letterboxed, scaled, compute dtype."""
         h, w = self.cfg.data.input_shape
-        x = torch.from_numpy(np.require(images, requirements=["C", "W"])
-                             ).to(self.device)
-        return preprocess_input(letterbox_image(x, (h, w))).to(self.dtype)
+        with span("predict.stage", self.device):
+            x = torch.from_numpy(np.require(images, requirements=["C", "W"])
+                                 ).to(self.device)
+            return preprocess_input(letterbox_image(x, (h, w))).to(self.dtype)
 
     # -- core ---------------------------------------------------------------
     @torch.inference_mode()
@@ -197,24 +200,32 @@ class SegPredictor:
         """Batched ``get_miou_png`` over same-resolution images: letterbox
         -> forward -> un-letterbox -> argmax per batch on the device, the
         ragged tail padded and dropped.  ``images``: (N, ih, iw, 3) uint8.
-        Returns (N, ih, iw) uint8 class masks."""
-        images = np.asarray(images)
-        n, ih, iw = images.shape[:3]
-        h, w = self.cfg.data.input_shape
-        outs = []
-        for i in range(0, n, batch_size):
-            chunk = images[i:i + batch_size]
-            k = len(chunk)
-            if k < batch_size:  # pad the ragged tail: one batch shape
-                chunk = np.concatenate(
-                    [chunk, np.zeros((batch_size - k,) + chunk.shape[1:],
-                                     chunk.dtype)])
-            probs = self._run(self._stage(chunk)).float()
-            out = unletterbox_logits(probs, (ih, iw), (h, w))
-            outs.append(out.argmax(dim=-1).to(torch.uint8)[:k])
-        if not outs:
-            return np.zeros((0, ih, iw), np.uint8)
-        return torch.cat(outs).cpu().numpy()
+        Returns (N, ih, iw) uint8 class masks.  Spans: ``predict.request``
+        over the call; per batch ``predict.stage``, ``predict.forward``,
+        ``predict.unletterbox``, ``predict.argmax``; ``predict.download``."""
+        dev = self.device
+        with span("predict.request", dev):
+            images = np.asarray(images)
+            n, ih, iw = images.shape[:3]
+            h, w = self.cfg.data.input_shape
+            outs = []
+            for i in range(0, n, batch_size):
+                chunk = images[i:i + batch_size]
+                k = len(chunk)
+                if k < batch_size:  # pad the ragged tail: one batch shape
+                    chunk = np.concatenate(
+                        [chunk, np.zeros((batch_size - k,) + chunk.shape[1:],
+                                         chunk.dtype)])
+                probs = self._run(self._stage(chunk))
+                with span("predict.unletterbox", dev):
+                    out = unletterbox_logits(probs.float(), (ih, iw), (h, w))
+                with span("predict.argmax", dev):
+                    outs.append(out.argmax(dim=-1).to(torch.uint8)[:k])
+            if not outs:
+                return np.zeros((0, ih, iw), np.uint8)
+            with span("predict.download", dev):
+                masks = torch.cat(outs).cpu()
+            return masks.numpy()
 
     # -- benchmarking ---------------------------------------------------------
     def get_fps(self, image: np.ndarray, test_interval: int = 100) -> float:

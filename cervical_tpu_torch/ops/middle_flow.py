@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from cervical_tpu_torch.ops import _build
+from cervical_tpu_torch.utils.profiling import span
 
 SOURCE = _build.CSRC_DIR / "middle_flow.cu"
 
@@ -435,15 +436,19 @@ def middle_flow_eval(x, folded, dilation: int = 1):
     CPU tensor takes :func:`middle_flow_reference`; a CUDA tensor (bf16 or
     f32, C a multiple of 8) runs :func:`dw_stencil` then :func:`pw_gemm`
     (on ``wpw_t`` in bf16, ``wpw_t_split`` in f32) per separable conv in
-    ``x``'s dtype, 96 launches for 16 blocks.  Other devices raise.
+    ``x``'s dtype, 96 launches for 16 blocks.  Other devices raise.  The
+    host span ``mf.eval`` covers the call on either path.
     """
-    if x.device.type == "cpu":
-        return middle_flow_reference(x, folded, dilation)
-    if not x.is_cuda:
-        raise ValueError(f"middle_flow_eval runs on cpu or cuda, got {x.device}")
-    key = "wpw_t_split" if x.dtype == torch.float32 else "wpw_t"
-    if key not in folded:
-        raise KeyError(f"folded lacks {key!r}, the K-major pointwise weights "
-                       "the kernels read: fold with fold_middle_flow")
-    return _middle_flow(x.contiguous(), folded, dilation, dw_stencil, pw_gemm,
-                        key)
+    with span("mf.eval"):
+        if x.device.type == "cpu":
+            return middle_flow_reference(x, folded, dilation)
+        if not x.is_cuda:
+            raise ValueError(
+                f"middle_flow_eval runs on cpu or cuda, got {x.device}")
+        key = "wpw_t_split" if x.dtype == torch.float32 else "wpw_t"
+        if key not in folded:
+            raise KeyError(f"folded lacks {key!r}, the K-major pointwise "
+                           "weights the kernels read: fold with "
+                           "fold_middle_flow")
+        return _middle_flow(x.contiguous(), folded, dilation, dw_stencil,
+                            pw_gemm, key)

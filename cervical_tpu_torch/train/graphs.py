@@ -40,6 +40,7 @@ import torch
 from cervical_tpu_torch.models.layers import Dropout
 from cervical_tpu_torch.ops import middle_flow as MF
 from cervical_tpu_torch.ops import warp as W
+from cervical_tpu_torch.utils.profiling import span
 
 _COUNTERS = (W.LAUNCHES, MF.LAUNCHES, MF.F32_LAUNCHES)
 
@@ -95,48 +96,52 @@ class GraphedCall:
     """``fn(*inputs) -> {name: tensor}`` captured once as a CUDA graph over
     static copies, on ``device``, of ``example_inputs`` (on the card, or
     pinned host tensors), then replayed by :meth:`__call__`.  ``state`` is
-    the :class:`TrainState` that ``fn`` reads and may train."""
+    the :class:`TrainState` that ``fn`` reads and may train.  The host
+    span ``seg.graph.capture`` covers the warm-up and the capture."""
 
     def __init__(self, fn: Callable[..., Dict[str, torch.Tensor]], state,
                  example_inputs: Sequence[torch.Tensor], device,
                  warmup: int = 1):
-        device = torch.device(device)
-        if device.type != "cuda":
-            raise ValueError("GraphedCall captures CUDA work; on the CPU "
-                             "call the function itself")
-        self.state = state
-        # the graph reads what ``fn`` closes over by address: keep it alive
-        self.fn = fn
-        self.static = [torch.empty_like(t, device=device)
-                       for t in example_inputs]
-        for s, t in zip(self.static, example_inputs):
-            s.copy_(t)
-        gens = dropout_generators(state.model, device)
-        snap = _snapshot(state, gens)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(warmup):
-                fn(*self.static)
-        torch.cuda.current_stream(device).wait_stream(side)
-        torch.cuda.synchronize(device)
-        _restore(state, gens, snap)
+        with span("seg.graph.capture"):
+            device = torch.device(device)
+            if device.type != "cuda":
+                raise ValueError("GraphedCall captures CUDA work; on the CPU "
+                                 "call the function itself")
+            self.state = state
+            # the graph reads what ``fn`` closes over by address: keep it
+            # alive
+            self.fn = fn
+            self.static = [torch.empty_like(t, device=device)
+                           for t in example_inputs]
+            for s, t in zip(self.static, example_inputs):
+                s.copy_(t)
+            gens = dropout_generators(state.model, device)
+            snap = _snapshot(state, gens)
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side):
+                for _ in range(warmup):
+                    fn(*self.static)
+            torch.cuda.current_stream(device).wait_stream(side)
+            torch.cuda.synchronize(device)
+            _restore(state, gens, snap)
 
-        self.graph = torch.cuda.CUDAGraph()
-        for g in gens:
-            self.graph.register_generator_state(g)
-        step0 = state.step
-        before = [dict(c) for c in _COUNTERS]
-        # thread_local: the loader's producer thread pins host memory while
-        # this thread captures
-        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-            self.out = fn(*self.static)
-        self.steps = state.step - step0
-        self.launches = [{k: c[k] - b[k] for k in c}
-                         for c, b in zip(_COUNTERS, before)]
-        state.step = step0
-        for c, b in zip(_COUNTERS, before):
-            c.update(b)
+            self.graph = torch.cuda.CUDAGraph()
+            for g in gens:
+                self.graph.register_generator_state(g)
+            step0 = state.step
+            before = [dict(c) for c in _COUNTERS]
+            # thread_local: the loader's producer thread pins host memory while
+            # this thread captures
+            with torch.cuda.graph(self.graph,
+                                  capture_error_mode="thread_local"):
+                self.out = fn(*self.static)
+            self.steps = state.step - step0
+            self.launches = [{k: c[k] - b[k] for k in c}
+                             for c, b in zip(_COUNTERS, before)]
+            state.step = step0
+            for c, b in zip(_COUNTERS, before):
+                c.update(b)
 
     def __call__(self, *inputs) -> Dict[str, torch.Tensor]:
         for s, t in zip(self.static, inputs):

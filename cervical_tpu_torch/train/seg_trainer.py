@@ -55,6 +55,7 @@ from cervical_tpu_torch.ops import augment as aug_ops
 from cervical_tpu_torch.parallel import mesh as P
 from cervical_tpu_torch.train import schedules
 from cervical_tpu_torch.train.graphs import GraphedCall
+from cervical_tpu_torch.utils.profiling import span
 
 
 def _dtype(cfg: SegTrainConfig) -> torch.dtype:
@@ -662,11 +663,12 @@ class SegTrainer:
         """One step on a batch already on the card, with freshly sampled
         augmentation parameters (one upload); returns the unsynced
         metrics."""
-        rows = self._param_rows(None, images.shape[0])
-        params = aug_ops.rows_to_params(rows.to(self.device,
-                                                non_blocking=True))
-        return self._train_step(frozen)(self.state, images, labels, params,
-                                        self._lr_arg(lr))
+        with span("seg.call.train"):
+            rows = self._param_rows(None, images.shape[0])
+            params = aug_ops.rows_to_params(rows.to(self.device,
+                                                    non_blocking=True))
+            return self._train_step(frozen)(self.state, images, labels,
+                                            params, self._lr_arg(lr))
 
     def _call_k(self, key, fn, inputs, lr=None):
         """Run ``fn(state, *inputs, [lr])``, a K-step call over ``inputs``.
@@ -686,37 +688,39 @@ class SegTrainer:
     def train_steps(self, images, labels, frozen: bool, lr: float):
         """K steps on (K, B, ...) batches already on the card, in one call
         (:func:`make_train_step_scan`); returns unsynced (K,) metrics."""
-        k, b = images.shape[0], images.shape[1]
-        fn = self._step_fn(("scan", frozen, k),
-                           lambda: make_train_step_scan(self.cfg, frozen, k,
-                                                        self.data))
-        return self._call_k(("scan", frozen, k, b), fn,
-                            (images, labels, self._param_rows(k, b)), lr)
+        with span("seg.call.train"):
+            k, b = images.shape[0], images.shape[1]
+            fn = self._step_fn(("scan", frozen, k),
+                               lambda: make_train_step_scan(self.cfg, frozen,
+                                                            k, self.data))
+            return self._call_k(("scan", frozen, k, b), fn,
+                                (images, labels, self._param_rows(k, b)), lr)
 
     def _resident_train(self, data, frozen: bool, idx, lr: float, gather):
         """One K-step call on the resident set ``data``; ``idx`` a host
         int64 array, (K,) batch or (K, B) row indices.  Under a mesh the
         rank reads its rows of each global batch, by row index."""
-        k, b = len(idx), data.batch_size
-        if self.data is not None:
-            idx = np.asarray(idx, np.int64)
-            if not gather:
-                idx = idx[:, None] * b + np.arange(b)
-            idx, gather = P.rank_rows(idx, self.data, 1), True
-            b = idx.shape[1]
-        idx = torch.as_tensor(np.ascontiguousarray(idx, np.int64))
-        if self.device.type == "cuda":
-            idx = idx.pin_memory()
-        scan = self._step_fn(("scanres", frozen, k, b, gather),
-                             lambda: make_train_step_scan_resident(
-                                 self.cfg, frozen, k, b, gather=gather,
-                                 data=self.data))
+        with span("seg.call.train"):
+            k, b = len(idx), data.batch_size
+            if self.data is not None:
+                idx = np.asarray(idx, np.int64)
+                if not gather:
+                    idx = idx[:, None] * b + np.arange(b)
+                idx, gather = P.rank_rows(idx, self.data, 1), True
+                b = idx.shape[1]
+            idx = torch.as_tensor(np.ascontiguousarray(idx, np.int64))
+            if self.device.type == "cuda":
+                idx = idx.pin_memory()
+            scan = self._step_fn(("scanres", frozen, k, b, gather),
+                                 lambda: make_train_step_scan_resident(
+                                     self.cfg, frozen, k, b, gather=gather,
+                                     data=self.data))
 
-        def fn(st, i, r, lr_):
-            return scan(st, data.images, data.labels, i, r, lr_)
-        key = ("res", frozen, k, b, gather, data.images.data_ptr(),
-               tuple(data.images.shape))
-        return self._call_k(key, fn, (idx, self._param_rows(k, b)), lr)
+            def fn(st, i, r, lr_):
+                return scan(st, data.images, data.labels, i, r, lr_)
+            key = ("res", frozen, k, b, gather, data.images.data_ptr(),
+                   tuple(data.images.shape))
+            return self._call_k(key, fn, (idx, self._param_rows(k, b)), lr)
 
     def _resident_eval(self, data, pos: int, k: int):
         """The summed metrics of resident eval batches ``pos .. pos+k-1``."""
@@ -749,7 +753,10 @@ class SegTrainer:
         the loader's batch size, so every eval batch has one shape and
         counts exactly.  Under a mesh the loaders yield global batches and
         each rank takes its rows.  Resident loaders (``fit`` with
-        ``device_resident``) go to :meth:`run_epoch_resident`."""
+        ``device_resident``) go to :meth:`run_epoch_resident`.  Spans:
+        ``seg.epoch`` over the epoch, ``seg.epoch.train`` and
+        ``seg.epoch.val`` over each pass up to its last drain, and
+        ``seg.call.train`` per train call."""
         from cervical_tpu_torch.data.resident import ResidentSegData
         if isinstance(train_loader, ResidentSegData):
             if not isinstance(val_loader, ResidentSegData):
@@ -761,23 +768,28 @@ class SegTrainer:
         t0 = time.time()
         depth = max(1, self.cfg.pipeline_depth)
         k = max(1, self.cfg.steps_per_call)
-        train = _Drain(depth)
-        for images, labels in device_prefetch(train_loader, self.device,
-                                              group=k, mesh=self.mesh):
-            if images.ndim == 5:
-                train.add(self.train_steps(images, labels, frozen, lr))
-            else:
-                train.add(self.train_step(images, labels, frozen, lr))
-        train.drain(0)
+        with span("seg.epoch", self.device):
+            train = _Drain(depth)
+            with span("seg.epoch.train", self.device):
+                for images, labels in device_prefetch(
+                        train_loader, self.device, group=k, mesh=self.mesh):
+                    if images.ndim == 5:
+                        train.add(self.train_steps(images, labels, frozen,
+                                                   lr))
+                    else:
+                        train.add(self.train_step(images, labels, frozen,
+                                                  lr))
+            train.drain(0)
 
-        val = _Drain(depth)
-        eval_fn = self._eval_step()
-        divisor = getattr(val_loader, "batch_size", 1)
-        for images, labels, w in device_prefetch(
-                val_loader, self.device, with_weights=True, divisor=divisor,
-                mesh=self.mesh):
-            val.add(eval_fn(self.state, images, labels, w))
-        val.drain(0)
+            val = _Drain(depth)
+            eval_fn = self._eval_step()
+            divisor = getattr(val_loader, "batch_size", 1)
+            with span("seg.epoch.val", self.device):
+                for images, labels, w in device_prefetch(
+                        val_loader, self.device, with_weights=True,
+                        divisor=divisor, mesh=self.mesh):
+                    val.add(eval_fn(self.state, images, labels, w))
+            val.drain(0)
         return EpochResult(train.mean("loss"), val.mean("loss"),
                            train.mean("f_score"), val.mean("f_score"),
                            time.time() - t0)
@@ -797,39 +809,44 @@ class SegTrainer:
         ``default_rng(seed * 100_003 + epoch)``; "none" keeps the order.
         The host permutations are the JAX package's, row for row.  Under a
         mesh every rank holds the whole set and draws the same shuffles,
-        then reads its rows of each global batch."""
+        then reads its rows of each global batch.  Spans as
+        :meth:`run_epoch`'s."""
         t0 = time.time()
-        cfg = self.cfg
-        k = max(1, cfg.steps_per_call)
-        c, b = train_rs.num_chunks, train_rs.batch_size
-        mode = cfg.resident_shuffle
-        order = np.arange(c)
-        rows = None
-        if mode == "gather":
-            rows = np.random.default_rng(
-                cfg.seed * 1_000_003 + epoch).permutation(c * b).reshape(c, b)
-        elif mode == "images":
-            train_rs.shuffle_(self.shuffle_generator)
-        elif mode == "chunks":
-            order = np.random.default_rng(
-                cfg.seed * 100_003 + epoch).permutation(c)
-        elif mode != "none":
-            raise ValueError(f"unknown resident_shuffle {mode!r}")
+        with span("seg.epoch", self.device):
+            cfg = self.cfg
+            k = max(1, cfg.steps_per_call)
+            c, b = train_rs.num_chunks, train_rs.batch_size
+            mode = cfg.resident_shuffle
+            order = np.arange(c)
+            rows = None
+            if mode == "gather":
+                rows = np.random.default_rng(
+                    cfg.seed * 1_000_003 + epoch).permutation(
+                        c * b).reshape(c, b)
+            elif mode == "images":
+                train_rs.shuffle_(self.shuffle_generator)
+            elif mode == "chunks":
+                order = np.random.default_rng(
+                    cfg.seed * 100_003 + epoch).permutation(c)
+            elif mode != "none":
+                raise ValueError(f"unknown resident_shuffle {mode!r}")
 
-        depth = max(1, cfg.pipeline_depth)
-        train = _Drain(depth)
-        for pos in range(0, c, k):
-            idx = (rows if rows is not None else order)[pos:pos + k]
-            train.add(self._resident_train(train_rs, frozen, idx, lr,
-                                           rows is not None))
-        train.drain(0)
+            depth = max(1, cfg.pipeline_depth)
+            train = _Drain(depth)
+            with span("seg.epoch.train", self.device):
+                for pos in range(0, c, k):
+                    idx = (rows if rows is not None else order)[pos:pos + k]
+                    train.add(self._resident_train(train_rs, frozen, idx, lr,
+                                                   rows is not None))
+            train.drain(0)
 
-        val = _Drain(depth)
-        cv = val_rs.num_chunks
-        for pos in range(0, cv, k):
-            kk = min(k, cv - pos)
-            val.add(self._resident_eval(val_rs, pos, kk), count=kk)
-        val.drain(0)
+            val = _Drain(depth)
+            cv = val_rs.num_chunks
+            with span("seg.epoch.val", self.device):
+                for pos in range(0, cv, k):
+                    kk = min(k, cv - pos)
+                    val.add(self._resident_eval(val_rs, pos, kk), count=kk)
+            val.drain(0)
         return EpochResult(train.mean("loss"), val.mean("loss"),
                            train.mean("f_score"), val.mean("f_score"),
                            time.time() - t0)

@@ -183,8 +183,8 @@
    ``run_epoch`` (``aug_backend="pallas"``) over its output read through
    ``VOCSegDataset(use_native=True)``: every batch decoded natively, K1-K3
    once per step, losses finite; (d) ``utils.profiling.trace`` around two
-   train steps, the Chrome trace naming K1-K3, and
-   ``ThroughputMeter.summary()``; (c) ``ops.histeq.fivefold_augment`` at
+   train steps, the Chrome trace naming K1-K3, and its table of the
+   program's spans (two ``seg.call.train``); (c) ``ops.histeq.fivefold_augment`` at
    (16, 512, 512, 3) on the card against the CPU (each slot's max
    difference and count printed, held to 1e-3), its images/s, and
    ``write_multimodal_augmented`` over 32 PNGs: 160 files.
@@ -3166,7 +3166,7 @@ def prepare_phase(torch, W, card, defaults=None, n_pairs=64, size=512,
     (b) the ``prepare_dataset`` CLI and an unfrozen epoch read natively
     from its output; (c) ``fivefold_augment`` card against CPU, its
     images/s, ``write_multimodal_augmented``; (d) a ``utils.profiling``
-    trace of two train steps and ``ThroughputMeter``.  ``defaults``: the
+    trace of two train steps and its span table.  ``defaults``: the
     defaults phase's readings, printed beside the decode rates."""
     import shutil
     import tempfile
@@ -3180,7 +3180,7 @@ def prepare_phase(torch, W, card, defaults=None, n_pairs=64, size=512,
     from cervical_tpu_torch.ops.histeq import fivefold_augment
     from cervical_tpu_torch.tools.offline_aug import write_multimodal_augmented
     from cervical_tpu_torch.train.seg_trainer import SegTrainer
-    from cervical_tpu_torch.utils.profiling import ThroughputMeter, trace
+    from cervical_tpu_torch.utils.profiling import trace
 
     res = {"card": card}
     seconds = {}
@@ -3380,28 +3380,29 @@ def prepare_phase(torch, W, card, defaults=None, n_pairs=64, size=512,
               f"{ep.train_loss:.5f} val {ep.val_loss:.5f}; decoders train "
               f"{train.batches} val {val.batches}; launches {epoch_launches}")
 
-        # (d) profiling: a trace of two train steps, the throughput meter
+        # (d) profiling: a trace of two train steps and its spans
         xb, lb = train.load_batch(np.arange(bs))
         xb, lb = torch.from_numpy(xb).to(device), torch.from_numpy(lb).to(
             device)
-        meter = ThroughputMeter()
-        meter.step(0)
         with trace(os.path.join(tmp, "trace")) as tr:
             for _ in range(2):
                 m = trainer.train_step(xb, lb, False, lr)
                 sync()
-                meter.step(bs)
         with open(tr.path) as f:
             text = f.read()
         named = {k: k in text for k in TRAIN_KERNELS}
         check(math.isfinite(float(m["loss"])), "non-finite traced step")
         if device != "cpu":
             check(all(named.values()), f"the trace names {named}")
+        calls = tr.spans.get("seg.call.train")
+        check(calls is not None and calls.count == 2
+              and "seg.call.train" in text, f"the trace's spans {tr.spans}")
+        spans = {k: t._asdict() for k, t in tr.spans.items()}
         res["trace"] = {"mib": os.path.getsize(tr.path) / 2 ** 20,
-                        "names": named, "meter": meter.summary()}
+                        "names": named, "spans": spans}
         print(f"profiling.trace of 2 train steps: {res['trace']['mib']:.2f} "
-              f"MiB Chrome trace naming {named}; ThroughputMeter "
-              f"{json.dumps(meter.summary())} ({card})")
+              f"MiB Chrome trace naming {named}; spans "
+              f"{json.dumps(spans)} ({card})")
         del trainer
 
         # (c) the 5x multimodal augmentation, card against CPU

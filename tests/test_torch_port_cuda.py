@@ -883,6 +883,77 @@ def test_resident_graph_epoch_on_card(cuda_device):
                                   host["hist"])
 
 
+def test_spans_time_the_card(cuda_device, tmp_path):
+    """The program's spans under ``utils.profiling.trace`` on the card.  A
+    resident epoch whose graphs are captured inside the trace: one
+    ``seg.graph.capture`` per graph (host only), the epoch's parts timed on
+    the card within the epoch, its train calls on the host.  Then fused
+    ``predict_masks``: every ``predict.*`` span timed on the card, the
+    phases within the request, ``mf.eval`` once per forward; a span
+    opened on a stream that captures a graph records no event; and an
+    annotation around ``middle_flow_eval`` keeps its mirror on the card's
+    timeline."""
+    from cervical_tpu_torch.config import SegDataConfig, SegTrainConfig
+    from cervical_tpu_torch.data.resident import ResidentSegData
+    from cervical_tpu_torch.inference.predictor import SegPredictor
+    from cervical_tpu_torch.models.deeplab import DeepLab
+    from cervical_tpu_torch.train.seg_trainer import SegTrainer
+    from cervical_tpu_torch.utils import profiling as P
+    from torch_port_helpers import random_state
+
+    rng = np.random.default_rng(34)
+    imgs = rng.integers(0, 256, (20, 64, 64, 3), dtype=np.uint8)
+    lbls = rng.integers(0, 5, (20, 64, 64), dtype=np.uint8)
+    tr = SegTrainer(_graph_cfg(steps_per_call=2, device_resident=True))
+    trs = ResidentSegData.from_arrays(imgs, lbls, 4, cuda_device)
+    vrs = ResidentSegData.from_arrays(imgs[:8], lbls[:8], 4, cuda_device,
+                                      train=False)
+    with P.trace(str(tmp_path)) as t:
+        tr.run_epoch(trs, vrs, 0, False, 1e-3)
+    s = t.spans
+    # 2-step calls, the 1-step tail, one 2-batch eval call
+    assert s["seg.graph.capture"].count == 3
+    assert s["seg.graph.capture"].device_s is None
+    assert s["seg.call.train"].count == 3
+    assert s["seg.call.train"].parent == "seg.epoch.train"
+    parts = s["seg.epoch.train"].device_s + s["seg.epoch.val"].device_s
+    assert 0 < parts <= s["seg.epoch"].device_s
+
+    state = random_state(DeepLab(num_classes=5), seed=53)
+    cfg = SegTrainConfig(data=SegDataConfig(input_shape=(64, 64)))
+    pred = SegPredictor(cfg, state, fused_middle=True)
+    images = rng.integers(0, 256, (3, 45, 70, 3)).astype(np.uint8)
+    pred.predict_masks(images, batch_size=2)  # warm
+    folded = _random_folded(9, 2, 32, cuda_device)
+    x = torch.randn(2, 5, 7, 32, device=cuda_device).to(torch.bfloat16)
+    with P.trace(str(tmp_path)) as t:
+        pred.predict_masks(images, batch_size=2)
+        with torch.profiler.record_function("test.k4"):
+            MF.middle_flow_eval(x, folded)
+        stream = torch.cuda.Stream()
+        graph = torch.cuda.CUDAGraph()
+        x = torch.zeros(8, device=cuda_device)
+        with torch.cuda.graph(graph, stream=stream):
+            with P.span("test.captured", cuda_device):
+                x.add_(1)
+    s = t.spans
+    names = ("predict.stage", "predict.forward", "predict.unletterbox",
+             "predict.argmax", "predict.download")
+    assert all(s[k].device_s > 0 for k in names + ("predict.request",))
+    assert sum(s[k].device_s for k in names) <= s["predict.request"].device_s
+    # two forwards' and the annotated call's
+    assert s["mf.eval"].count == 3 and s["mf.eval"].parent == \
+        "predict.forward"
+    assert s["test.captured"].count == 1
+    assert s["test.captured"].device_s is None
+    # an annotation around a span keeps its mirror on the card's timeline
+    # (the benchmark's bench.k4 around middle_flow_eval)
+    events = t.profile.profiler.kineto_results.events()
+    on_card = {e.name() for e in events
+               if str(e.device_type()).endswith("CUDA")}
+    assert "test.k4" in on_card and "mf.eval" not in on_card
+
+
 def test_f32_fused_eval_trainer_on_card(cuda_device):
     """An f32 SegTrainer with ``fused_middle_eval=True`` (TF32 off, set by
     the fixture): ``evaluate_miou`` host-fed and resident (a CUDA graph,
