@@ -23,6 +23,7 @@ import torch.nn as nn
 from cervical_tpu_torch.config import SegTrainConfig
 from cervical_tpu_torch.ops.image import (letterbox_image, preprocess_input,
                                           unletterbox_logits)
+from cervical_tpu_torch.train.graphs import GraphedCall
 from cervical_tpu_torch.train.seg_trainer import _dtype, build_model
 from cervical_tpu_torch.utils.profiling import span
 
@@ -45,8 +46,57 @@ class _ServingForward(nn.Module):
         self.model = model
 
     def forward(self, images):
-        logits = self.model(images.permute(0, 3, 1, 2))
-        return torch.softmax(logits, dim=1).permute(0, 2, 3, 1)
+        return _probs(self.model(images.permute(0, 3, 1, 2)))
+
+    def stages(self, hw) -> list:
+        """The forward at input size ``hw`` as ``(graphed, fn)`` stages, each
+        ``fn`` a tuple of tensors -> a tuple, the first taking the images
+        and the last giving the probabilities: one graphed stage, or where
+        the backbone runs a fused middle flow (``fused_eval``) its entry
+        flow, the middle flow as a host call (it looks up and calls
+        ``middle_flow_eval`` per forward, and refolds after new weights),
+        and the rest."""
+        bb = self.model.backbone
+        if not getattr(bb, "fused_eval", False):
+            return [(True, lambda x: (self(x),))]
+        return [
+            (True, lambda x: bb.entry_flow(x.permute(0, 3, 1, 2))),
+            (False, lambda x, low: (bb.middle_flow(x), low)),
+            (True, lambda x, low: (_probs(self.model.decode(
+                low, bb.exit_flow(x), hw)),)),
+        ]
+
+
+def _probs(logits):
+    return torch.softmax(logits, dim=1).permute(0, 2, 3, 1)
+
+
+class _ForwardGraphs:
+    """The serving forward's stages (``_ServingForward.stages``) at one
+    input key: each graphed stage a ``train/graphs.GraphedCall``, captured
+    when the first call reaches it (so a graph after a host stage is warmed
+    up and captured on that stage's real output), all of them in one
+    memory pool; a host stage is called between them.  The first call is
+    served as every later one, and the middle flow's launches count once
+    a forward."""
+
+    def __init__(self, stages):
+        self.stages = stages
+        self.calls = [None] * len(stages)
+        self.pool = torch.cuda.graph_pool_handle()
+
+    def __call__(self, images):
+        """Replay in turn, and return a clone of the static probabilities:
+        no tensor a caller holds is overwritten later."""
+        args = (images,)
+        for i, (graphed, fn) in enumerate(self.stages):
+            if graphed:
+                if self.calls[i] is None:
+                    self.calls[i] = GraphedCall(fn, None, args, images.device,
+                                                pool=self.pool)
+                fn = self.calls[i].replay
+            args = fn(*args)
+        return args[0].clone()
 
 
 class SegPredictor:
@@ -60,6 +110,16 @@ class SegPredictor:
     ``fused_middle``: run backbone blocks 4-19 through the middle-flow
     kernels (``ops/middle_flow.py``; xception only).  ``device`` defaults
     to ``cuda``.
+
+    On a card the forward is served from CUDA graphs captured at the first
+    call of each input shape and dtype (``_ForwardGraphs``); the fused
+    middle flow stays a host call between two of them.  Each key keeps its
+    graphs and one memory pool of a forward's activations for the
+    predictor's life: every batch size served (``predict_probs``' 1,
+    ``predict_masks``' and ``predict_probs_tiled``'s ``batch_size``) holds
+    one.  On the CPU, and inside a stream that captures a graph, the
+    forward runs eagerly.  New weights (``update_state``) are copied into
+    the captured tensors in place, so the graphs stay.
     """
 
     def __init__(self, cfg: SegTrainConfig, state: Mapping[str, torch.Tensor],
@@ -72,10 +132,12 @@ class SegPredictor:
             self.device, memory_format=torch.channels_last).eval()
         self.colors = colors or DEFAULT_COLORS
         self._serve = _ServingForward(self.model)
+        self._graphs = {}  # (shape, dtype, device) -> _ForwardGraphs
         self.update_state(state)
 
     def update_state(self, state: Mapping[str, torch.Tensor]):
-        """Swap in new weights (a port ``state_dict``)."""
+        """Swap in new weights (a port ``state_dict``), in place: the
+        captured graphs read them."""
         self.model.load_state_dict(state)
 
     def _sync(self):
@@ -86,9 +148,22 @@ class SegPredictor:
     def _run(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) preprocessed NHWC in the compute dtype -> (B, H, W,
         num_classes) f32 softmax probs.  The NCHW view of a contiguous NHWC
-        batch is already ``channels_last``."""
+        batch is already ``channels_last``.  On a card, from the graphs of
+        the input's key (captured now at its first call; host spans
+        ``predict.graph.capture`` and ``predict.graph.replay``)."""
         with span("predict.forward", self.device):
-            return self._serve(images)
+            if not images.is_cuda or torch.cuda.is_current_stream_capturing():
+                return self._serve(images)
+            key = (tuple(images.shape), images.dtype, images.device)
+            graphs = self._graphs.get(key)
+            with span("predict.graph.replay"):
+                if graphs is not None:
+                    return graphs(images)
+                # a new key's first forward captures its graphs
+                with span("predict.graph.capture"):
+                    graphs = self._graphs[key] = _ForwardGraphs(
+                        self._serve.stages(images.shape[1:3]))
+                    return graphs(images)
 
     def _stage(self, images: np.ndarray) -> torch.Tensor:
         """uint8 (..., ih, iw, 3) -> letterboxed, scaled, compute dtype."""

@@ -181,17 +181,34 @@ class XceptionBackbone(nn.Module):
         xh = x.permute(0, 2, 3, 1).contiguous()
         return middle_flow_eval(xh, self._folded, self.rate).permute(0, 3, 1, 2)
 
-    def forward(self, x):
+    @property
+    def fused_eval(self) -> bool:
+        """Whether :meth:`forward` runs blocks 4-19 as the fused middle
+        flow (:meth:`_middle_fused`), a host call of 96 launches."""
+        return self.fused_middle and not self.training
+
+    def entry_flow(self, x):
+        """conv1, conv2, blocks 1-3 -> (x, low_level)."""
         x = torch.relu(self.bn1(self.conv1(x)))
         x = torch.relu(self.bn2(self.conv2(x)))
         x, _ = self.block1(x)
         x, low = self.block2(x)
         x, _ = self.block3(x)
-        if self.fused_middle and not self.training:
-            x = self._middle_fused(x)
-        else:
-            for i in range(4, 20):
-                x, _ = getattr(self, f"block{i}")(x)
+        return x, low
+
+    def middle_flow(self, x):
+        """Blocks 4-19."""
+        if self.fused_eval:
+            return self._middle_fused(x)
+        for i in range(4, 20):
+            x, _ = getattr(self, f"block{i}")(x)
+        return x
+
+    def exit_flow(self, x):
+        """Block 20, conv3-5."""
         x, _ = self.block20(x)
-        x = self.conv5(self.conv4(self.conv3(x)))
-        return low, x
+        return self.conv5(self.conv4(self.conv3(x)))
+
+    def forward(self, x):
+        x, low = self.entry_flow(x)
+        return low, self.exit_flow(self.middle_flow(x))

@@ -124,9 +124,14 @@ class DeepLab(nn.Module):
         phase — the backbone runs without autograd, so its backward pass
         is never built, while its BatchNorm running stats still update in
         train mode (the JAX package's stop_gradient at the boundary)."""
-        h, w = x.shape[2], x.shape[3]
         with torch.no_grad() if freeze_backbone else contextlib.nullcontext():
             low, deep = self.backbone(x)
+        return self.decode(low, deep, (x.shape[2], x.shape[3]), resize_logits)
+
+    def decode(self, low, deep, out_hw, resize_logits: bool = True):
+        """The head on the backbone's features: ASPP, the shortcut, the
+        decoder and the logits, resized to ``out_hw`` with
+        ``resize_logits``."""
         deep = self.aspp(deep)
         low = self.shortcut_conv(low)
         deep = _resize_nchw(deep, (low.shape[2], low.shape[3]))
@@ -134,4 +139,4 @@ class DeepLab(nn.Module):
         y = self.cls_conv(y).float()
         if not resize_logits:
             return y
-        return _resize_nchw(y, (h, w))
+        return _resize_nchw(y, out_hw)

@@ -43,6 +43,11 @@ def _resident_interp(in_size: int, out_size: int, align_corners: bool,
             in_size, out_size, align_corners)).to(device=device, dtype=dtype)
 
 
+# the resident matrices a CUDA graph captured: the graph reads them by
+# address for its whole life, so they outlive the lru cache's evictions
+_CAPTURED: set = set()
+
+
 def _interp_tensor(in_size: int, out_size: int, align_corners: bool,
                    device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """:func:`_interp_matrix` resident on ``device`` (uploaded once).  Made
@@ -53,7 +58,10 @@ def _interp_tensor(in_size: int, out_size: int, align_corners: bool,
     if torch.compiler.is_compiling():
         return torch.tensor(_interp_matrix(in_size, out_size, align_corners),
                             device=device, dtype=dtype)
-    return _resident_interp(in_size, out_size, align_corners, device, dtype)
+    m = _resident_interp(in_size, out_size, align_corners, device, dtype)
+    if m.is_cuda and torch.cuda.is_current_stream_capturing():
+        _CAPTURED.add(m)
+    return m
 
 
 def resize_bilinear(x: torch.Tensor, out_hw, align_corners: bool = True):

@@ -1,5 +1,6 @@
 """Train and eval calls as captured CUDA graphs — the port's counterpart of
-the JAX package's compiled K-step programs (``lax.scan`` over K steps).
+the JAX package's compiled K-step programs (``lax.scan`` over K steps) —
+and the predictor's serving forward (``inference/predictor.py``).
 
 A :class:`GraphedCall` captures ``fn(*static_inputs) -> {name: tensor}``
 once and replays it: each call copies its inputs into the static buffers
@@ -33,6 +34,7 @@ parameters on the card only).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Callable, Dict, Sequence
 
 import torch
@@ -96,17 +98,23 @@ class GraphedCall:
     """``fn(*inputs) -> {name: tensor}`` captured once as a CUDA graph over
     static copies, on ``device``, of ``example_inputs`` (on the card, or
     pinned host tensors), then replayed by :meth:`__call__`.  ``state`` is
-    the :class:`TrainState` that ``fn`` reads and may train.  The host
-    span ``seg.graph.capture`` covers the warm-up and the capture."""
+    the :class:`TrainState` that ``fn`` reads and may train, or ``None``
+    where ``fn`` trains nothing (the predictor's forward).  ``pool``, a
+    ``torch.cuda.graph_pool_handle()``, lets graphs replayed in the order
+    of their captures share one memory pool.  The host span
+    ``seg.graph.capture`` covers the warm-up and the capture."""
 
     def __init__(self, fn: Callable[..., Dict[str, torch.Tensor]], state,
                  example_inputs: Sequence[torch.Tensor], device,
-                 warmup: int = 1):
+                 warmup: int = 1, pool=None):
         with span("seg.graph.capture"):
             device = torch.device(device)
             if device.type != "cuda":
                 raise ValueError("GraphedCall captures CUDA work; on the CPU "
                                  "call the function itself")
+            if state is None:
+                state = SimpleNamespace(model=torch.nn.Module(),
+                                        opt_state={}, step=0)
             self.state = state
             # the graph reads what ``fn`` closes over by address: keep it
             # alive
@@ -133,7 +141,7 @@ class GraphedCall:
             before = [dict(c) for c in _COUNTERS]
             # thread_local: the loader's producer thread pins host memory while
             # this thread captures
-            with torch.cuda.graph(self.graph,
+            with torch.cuda.graph(self.graph, pool=pool,
                                   capture_error_mode="thread_local"):
                 self.out = fn(*self.static)
             self.steps = state.step - step0
@@ -143,7 +151,9 @@ class GraphedCall:
             for c, b in zip(_COUNTERS, before):
                 c.update(b)
 
-    def __call__(self, *inputs) -> Dict[str, torch.Tensor]:
+    def replay(self, *inputs):
+        """Copy ``inputs`` in, replay, and return the static outputs as
+        ``fn`` gave them: the next replay overwrites them."""
         for s, t in zip(self.static, inputs):
             s.copy_(t, non_blocking=True)
         self.graph.replay()
@@ -151,4 +161,7 @@ class GraphedCall:
         for c, d in zip(_COUNTERS, self.launches):
             for k, v in d.items():
                 c[k] += v
-        return {k: v.clone() for k, v in self.out.items()}
+        return self.out
+
+    def __call__(self, *inputs) -> Dict[str, torch.Tensor]:
+        return {k: v.clone() for k, v in self.replay(*inputs).items()}

@@ -457,6 +457,170 @@ def test_fused_predictor_matches_plain_on_cuda(cuda_device, dtype):
 
 
 # ---------------------------------------------------------------------------
+# The serving forward from CUDA graphs (inference/predictor._ForwardGraphs)
+# ---------------------------------------------------------------------------
+
+def _serving(backbone, fused, seed=61, hw=(512, 512), dtype="bfloat16"):
+    from cervical_tpu_torch.config import SegDataConfig, SegTrainConfig
+    from cervical_tpu_torch.inference.predictor import SegPredictor
+    from cervical_tpu_torch.models.deeplab import DeepLab
+    from torch_port_helpers import random_state
+
+    cfg = SegTrainConfig(data=SegDataConfig(input_shape=hw),
+                         backbone=backbone, dtype=dtype)
+    state = random_state(DeepLab(num_classes=5, backbone=backbone), seed)
+    return SegPredictor(cfg, state, fused_middle=fused)
+
+
+def _inputs(b, seed, hw=(512, 512), dtype=torch.bfloat16):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.rand((b,) + hw + (3,), generator=g,
+                      device="cuda").to(dtype)
+
+
+_SERVING = [("mobilenet", False, "bfloat16"), ("xception", False, "bfloat16"),
+            ("xception", True, "bfloat16"), ("xception", True, "float32")]
+
+
+@pytest.mark.parametrize("backbone,fused,dtype", _SERVING,
+                         ids=["mobilenet", "xception", "xception-fused",
+                              "xception-fused-f32"])
+def test_graphed_forward_equals_eager(cuda_device, monkeypatch, backbone,
+                                      fused, dtype):
+    """At 512²: ``_run`` from its graphs against the eager ``_serve`` bit
+    for bit at batch 8 and batch 1, one key each; a returned tensor
+    unchanged by the next call; after ``update_state`` with other weights
+    the same graphs give the new forward; ``predict_masks`` on 960x1280
+    images equal to the eager forward's masks; a fused forward adds 96
+    middle-flow launches, all f32 ones in f32 and none in bf16, its first
+    (capturing) forward too; the interpolation matrices the graphs read
+    survive the lru cache's eviction."""
+    from cervical_tpu_torch.models.deeplab import DeepLab
+    from cervical_tpu_torch.ops import image as I
+    from torch_port_helpers import random_state
+
+    pred = _serving(backbone, fused, dtype=dtype)
+    in_dtype = getattr(torch, dtype)
+    xs = {b: (_inputs(b, 2 * b, dtype=in_dtype),
+              _inputs(b, 2 * b + 1, dtype=in_dtype)) for b in (8, 1)}
+    per_forward = {"dw_stencil": 48, "pw_gemm": 48}
+    none = {"dw_stencil": 0, "pw_gemm": 0}
+    f32_per_forward = per_forward if dtype == "float32" else none
+
+    def check():
+        for x, _ in xs.values():
+            with torch.inference_mode():
+                want = pred._serve(x)
+            MF.reset_launches()
+            got = pred._run(x)
+            if fused:
+                assert MF.LAUNCHES == per_forward
+                assert MF.F32_LAUNCHES == f32_per_forward
+            assert torch.equal(got, want)
+
+    check()  # captures
+    assert sorted(k[0][0] for k in pred._graphs) == [1, 8]
+    graphs = dict(pred._graphs)
+    x, y = xs[8]
+    first = pred._run(x)
+    kept = first.clone()
+    assert not torch.equal(pred._run(y), kept)
+    assert torch.equal(first, kept)
+    check()  # replays
+
+    # the cache drops its matrices; blocks of every size up to 1 MB, NaN
+    # filled, take whatever memory no one holds
+    I._resident_interp.cache_clear()
+    filler = [torch.full((1 << k,), float("nan"), device="cuda")
+              for k in range(7, 19) for _ in range(8)]
+    check()
+    del filler
+
+    pred.update_state(random_state(DeepLab(num_classes=5,
+                                           backbone=backbone), 62))
+    assert not torch.equal(pred._run(x), kept)
+    check()
+    assert pred._graphs == graphs
+
+    imgs = np.random.default_rng(63).integers(
+        0, 256, (9, 960, 1280, 3), dtype=np.uint8)
+    graphed = pred.predict_masks(imgs)
+    monkeypatch.setattr(pred, "_run", pred._serve)
+    np.testing.assert_array_equal(graphed, pred.predict_masks(imgs))
+    assert len(np.unique(graphed)) > 1
+
+
+def test_forward_inside_a_capture_stays_eager(cuda_device):
+    """``_run`` called while the current stream captures a graph runs the
+    eager forward into that graph and keeps no graphs of its own."""
+    pred = _serving("mobilenet", False, hw=(64, 64))
+    x = _inputs(2, 5, (64, 64))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side), torch.inference_mode():
+        want = pred._serve(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pred._run(x)
+    assert pred._graphs == {}
+    graph.replay()
+    assert torch.equal(out, want)
+
+
+def test_k4_span_sees_the_middle_flow_between_graphs(cuda_device):
+    """The benchmark's reading of K4 (``k4_roofline``): its ``bench.k4``
+    annotation around ``middle_flow_eval`` (``harness/serve_masks.k4_span``)
+    opens once per graphed forward of ``predict_masks``, and its mirror on
+    the card's timeline holds K4's 96 kernels of that forward."""
+    from benchmarks.harness.serve_masks import K4_SPAN, k4_span
+    from benchmarks.harness.trace import Tracer
+
+    pred = _serving("xception", True)
+    imgs = np.random.default_rng(64).integers(
+        0, 256, (16, 960, 1280, 3), dtype=np.uint8)
+    pred.predict_masks(imgs)  # captures
+    with k4_span(), Tracer(torch) as t:
+        with t.window():
+            pred.predict_masks(imgs)
+    s = t.summary(spans=(K4_SPAN,))
+    assert s.span_count[K4_SPAN] == 2 and s.span_device_s[K4_SPAN] > 0
+    events = t.prof.profiler.kineto_results.events()
+    on_card = [e for e in events if str(e.device_type()).endswith("CUDA")]
+    mirrors = [(e.start_ns(), e.end_ns()) for e in on_card
+               if e.name() == K4_SPAN]
+    kernels = [e for e in on_card if e.name() != K4_SPAN
+               and not e.name().lower().startswith(("memcpy", "memset"))
+               and not e.name().startswith(("bench.", "predict."))]
+    assert len(mirrors) == 2
+    for a, b in mirrors:
+        inside = [e.name() for e in kernels
+                  if a <= e.start_ns() and e.end_ns() <= b]
+        assert len(inside) == 96
+        assert sum("stencil" in n for n in inside) == 48
+
+
+def test_graph_spans_count_captures_and_replays(cuda_device, tmp_path):
+    """``predict.graph.capture`` once per input key, host only;
+    ``predict.graph.replay`` once per forward, inside ``predict.forward``."""
+    from cervical_tpu_torch.utils import profiling as P
+
+    pred = _serving("mobilenet", False, hw=(64, 64))
+    imgs = np.random.default_rng(65).integers(
+        0, 256, (3, 45, 70, 3), dtype=np.uint8)
+    with P.trace(str(tmp_path)) as t:
+        pred.predict_masks(imgs, batch_size=2)
+        pred.predict_probs(imgs[0])
+        pred.predict_masks(imgs, batch_size=2)
+    s = t.spans
+    assert s["predict.graph.capture"].count == 2
+    assert s["predict.graph.replay"].count == s["predict.forward"].count == 5
+    assert s["predict.graph.replay"].parent == "predict.forward"
+    assert s["predict.graph.capture"].device_s is None
+    assert s["predict.graph.replay"].device_s is None
+
+
+# ---------------------------------------------------------------------------
 # K1 warp_images, K2 warp_labels, K3 photometric (csrc/warp.cu)
 # ---------------------------------------------------------------------------
 
@@ -941,9 +1105,11 @@ def test_spans_time_the_card(cuda_device, tmp_path):
              "predict.argmax", "predict.download")
     assert all(s[k].device_s > 0 for k in names + ("predict.request",))
     assert sum(s[k].device_s for k in names) <= s["predict.request"].device_s
-    # two forwards' and the annotated call's
+    # two forwards' and the annotated call's; a forward's middle flow runs
+    # between its graphs' replays
     assert s["mf.eval"].count == 3 and s["mf.eval"].parent == \
-        "predict.forward"
+        "predict.graph.replay"
+    assert s["predict.graph.replay"].parent == "predict.forward"
     assert s["test.captured"].count == 1
     assert s["test.captured"].device_s is None
     # an annotation around a span keeps its mirror on the card's timeline

@@ -79,6 +79,31 @@ def test_fused_middle_predictor_matches_plain(state, predictor, images):
     np.testing.assert_allclose(p1, p0, atol=1e-3, rtol=0)
 
 
+@pytest.mark.parametrize("backbone,fused", [("mobilenet", False),
+                                            ("xception", False),
+                                            ("xception", True)])
+def test_staged_forward_composes_to_the_forward(backbone, fused):
+    """The serving forward's stages, run in turn, give the eager forward
+    bit for bit: one graphed stage, or with the fused middle flow (its
+    plain version on the CPU) the entry flow, the middle flow as a host
+    stage and the rest.  The stages are what the card's graphs capture."""
+    cfg = SegTrainConfig(data=SegDataConfig(input_shape=(32, 32)),
+                         backbone=backbone, dtype="float32")
+    state = random_state(DeepLab(num_classes=5, backbone=backbone), seed=43)
+    pred = SegPredictor(cfg, state, fused_middle=fused, device="cpu")
+    stages = pred._serve.stages((32, 32))
+    assert [g for g, _ in stages] == ([True, False, True] if fused
+                                      else [True])
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(4))
+    with torch.inference_mode():
+        args = (x,)
+        for _, fn in stages:
+            args = fn(*args)
+        want = torch.softmax(pred.model(x.permute(0, 3, 1, 2)), dim=1)
+    assert len(args) == 1
+    assert torch.equal(args[0], want.permute(0, 2, 3, 1))
+
+
 def test_bf16_predictor_runs(state, images):
     """The default compute dtype: bf16 convs, fp32 params and BN."""
     cfg = SegTrainConfig(data=SegDataConfig(input_shape=HW))

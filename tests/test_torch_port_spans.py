@@ -72,6 +72,18 @@ def test_predict_masks_spans(mobilenet_predictor, tmp_path, n, batch):
         tr.spans[k].host_s for k in PHASES + ("predict.download",))
 
 
+def test_run_stays_eager_on_the_cpu(mobilenet_predictor, tmp_path):
+    """On the CPU ``_run`` is the eager forward: no graph kept, no
+    ``predict.graph.*`` span, the probabilities of ``_serve``."""
+    x = torch.rand(2, S, S, 3, generator=torch.Generator().manual_seed(5))
+    with trace(str(tmp_path)) as tr:
+        got = mobilenet_predictor._run(x)
+    assert set(tr.spans) == {"predict.forward"}
+    assert mobilenet_predictor._graphs == {}
+    with torch.inference_mode():
+        assert torch.equal(got, mobilenet_predictor._serve(x))
+
+
 def test_middle_flow_eval_records_its_span(tmp_path):
     """``middle_flow_eval`` on the CPU (the plain path) is one ``mf.eval``
     host span per call."""
