@@ -5,16 +5,15 @@ float8, put in the program's place) and for the planted faults.
 
     python3 benchmarks/control.py --workload xception-train --seeds 1 2 3
 
-Training cells read the probe only (the window's first K-step call and
-its val passes; no window).  Faults: the reference on half of each batch
-(the mean over the rest); a state left unchanged (the program's readings
-with no change).  A witness: the reference with its convolutions in
-bfloat16, held against itself in float32, shows what rounding alone does
-to the numbers.  Serving cells serve ``check_requests`` requests through
-the program and judge every one; faults: the masks of half of each
-request's images replaced by class 0, and each class of a request's masks
-changed to the next.  One JSON line per seed, and the readings' maxima and
-minima last.  The benchmark's own runs never run this.
+The readings are the ``control_readings(ctx)`` of the runner that the
+cell's traffic mix names (``benchmarks/harness/<runner>.py``; their
+docstrings say what each reads).  Training cells read the probe only (the
+window's first K-step call and its val passes; no window); a witness, the
+reference with its convolutions in bfloat16 held against itself in
+float32, shows what rounding alone does to the numbers.  Serving cells
+serve ``check_requests`` requests through the program and judge every one.
+One JSON line per seed, and the readings' maxima and minima last.  The
+benchmark's own runs never run this.
 """
 
 import argparse
@@ -26,49 +25,16 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def train_readings(ctx):
-    from benchmarks.harness import train_epochs as T
-    from benchmarks.reference import compare
-    s = T.Setup(ctx, warm=False)
-    s.free()
-    ref = s.reference()
-    out = {"program": compare.train_numbers(s.readings, ref),
-           "control": compare.train_numbers(s.reference("float8"), ref),
-           "half_batch": compare.train_numbers(
-               s.reference(fault="half_batch"), ref),
-           "witness_bf16": compare.train_numbers(s.reference("bfloat16"),
-                                                 ref)}
-    still = dict(s.readings, changes={n: 0.0 * t for n, t in
-                                      s.readings["changes"].items()})
-    out["unchanged"] = compare.train_numbers(still, ref)
-    return out
-
-
-def serve_readings(ctx):
-    import torch
-    from benchmarks.harness import serve_masks as SV, weights
-    from benchmarks.reference import compare, serve as R
-    s = SV.Setup(ctx)
-    kept = [(i, s.request(i)) for i in range(ctx.traffic["check_requests"])]
-    s.free()
-    dev = ctx.device
-    sd = weights.make(s.backbone, s.nc, 2 * ctx.seed + 1,
-                      ctx.config["weights"], dev, s.hw)
-    model = R.build(s.backbone, sd, s.nc, dev)
-    gaps = {"program": [], "control": [], "half_batch": [], "altered": []}
-    for i, masks in kept:
-        x = torch.from_numpy(s.images(i)).to(dev)
-        p = R.probs(model, x, s.hw)
-        m = torch.from_numpy(masks).to(dev)
-        gaps["program"].append(R.mask_gaps(p, m))
-        low = R.probs(model, x, s.hw, "float8").argmax(1)
-        gaps["control"].append(R.mask_gaps(p, low))
-        half = m.clone()
-        half[: len(half) // 2] = 0
-        gaps["half_batch"].append(R.mask_gaps(p, half))
-        alt = (m + 1) % s.nc
-        gaps["altered"].append(R.mask_gaps(p, alt))
-    return {k: compare.serve_numbers(v) for k, v in gaps.items()}
+def readings(spec: dict, cell_name: str, root: str = ROOT):
+    """``control_readings(ctx)`` of the runner that the cell's traffic mix
+    names; a runner without one is refused by name."""
+    from benchmarks.harness import spec as S
+    name = S.traffic(S.cell(spec, cell_name)["traffic"], root)["runner"]
+    read = getattr(S.runner(name, root), "control_readings", None)
+    if not callable(read):
+        raise LookupError(f"runner {name!r} (benchmarks/harness/{name}.py) "
+                          f"has no control_readings(ctx)")
+    return read
 
 
 def main(argv=None) -> int:
@@ -86,8 +52,11 @@ def main(argv=None) -> int:
     spec = S.load()
     cell = S.cell(spec, args.workload)
     traffic = S.traffic(cell["traffic"])
-    read = train_readings if traffic["runner"] == "train_epochs" \
-        else serve_readings
+    try:
+        read = readings(spec, args.workload)
+    except LookupError as e:
+        print(e, file=sys.stderr)
+        return 2
     rows = []
     for seed in args.seeds:
         ctx = Ctx(cell=cell, config=S.config(spec, cell["config"]),

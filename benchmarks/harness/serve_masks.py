@@ -7,6 +7,10 @@ masks in host memory (upload, letterbox, forward, softmax, un-letterbox,
 argmax, download).  After the window, with the predictor freed, the
 reference judges the masks of ``check_requests`` requests drawn from the
 seed among those the window completed.
+
+``control_readings`` gives ``benchmarks/control.py`` the numbers of
+``check_requests`` requests served through the program, for the program,
+the float8 control and the faults, with no window.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ class Setup:
         self.k = tr["request_images"]
         self.fused = conf["serving"]["fused_middle"]
         dev = ctx.device
-        cfg = seg_config(conf, cfg_seed(ctx.seed))
+        cfg = program_config(conf, cfg_seed(ctx.seed))
         sd = weights.make(self.backbone, self.nc, 2 * ctx.seed + 1,
                           conf["weights"], dev, self.hw)
         self.predictor = SegPredictor(cfg, sd, fused_middle=self.fused,
@@ -85,6 +89,38 @@ class Setup:
             out.append(R.mask_gaps(p, torch.from_numpy(masks).to(dev)))
             del p
         return out
+
+
+def program_config(conf: dict, seed: int):
+    """The program's ``SegTrainConfig`` of a configuration file."""
+    return seg_config(conf, seed)
+
+
+def control_readings(ctx) -> dict:
+    """The numbers of the first ``check_requests`` requests for the
+    program, the float8 control, the masks of half of each request's
+    images replaced by class 0, and each class changed to the next."""
+    s = Setup(ctx)
+    kept = [(i, s.request(i)) for i in range(ctx.traffic["check_requests"])]
+    s.free()
+    dev = ctx.device
+    sd = weights.make(s.backbone, s.nc, 2 * ctx.seed + 1,
+                      ctx.config["weights"], dev, s.hw)
+    model = R.build(s.backbone, sd, s.nc, dev)
+    gaps = {"program": [], "control": [], "half_batch": [], "altered": []}
+    for i, masks in kept:
+        x = torch.from_numpy(s.images(i)).to(dev)
+        p = R.probs(model, x, s.hw)
+        m = torch.from_numpy(masks).to(dev)
+        gaps["program"].append(R.mask_gaps(p, m))
+        low = R.probs(model, x, s.hw, "float8").argmax(1)
+        gaps["control"].append(R.mask_gaps(p, low))
+        half = m.clone()
+        half[: len(half) // 2] = 0
+        gaps["half_batch"].append(R.mask_gaps(p, half))
+        alt = (m + 1) % s.nc
+        gaps["altered"].append(R.mask_gaps(p, alt))
+    return {k: compare.serve_numbers(v) for k, v in gaps.items()}
 
 
 @contextlib.contextmanager

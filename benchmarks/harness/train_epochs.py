@@ -10,6 +10,9 @@ needs, then runs epoch 1 whole, which captures the val pass's ragged tail.
 The same trainer then runs the window: whole epochs until ``--seconds``
 have passed, the epoch in flight finished.  After the window, with the
 program freed, the reference follows the probe's K steps and val passes.
+
+``control_readings`` gives ``benchmarks/control.py`` the probe's numbers
+for the program, the float8 control and the faults, with no window.
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ class Setup:
         self.n_train = conf["train_images"]
         self.n_val = conf["val_images"]
         dev = ctx.device
-        self.cfg = seg_config(conf, cfg_seed(ctx.seed))
+        self.cfg = program_config(conf, cfg_seed(ctx.seed))
         self.k = k = max(1, self.cfg.steps_per_call)
         b, nt, nv = self.b, self.n_train, self.n_val
         images, labels = datagen.scenes(2 * ctx.seed, nt + nv, self.hw,
@@ -138,6 +141,31 @@ class Setup:
         return R.follow(self.backbone, sd, batches, params, masks,
                         self.probe_val, list(self.cfg.cls_weights), self.nc,
                         self.hw, self.lr, precision=precision, fault=fault)
+
+
+def program_config(conf: dict, seed: int):
+    """The program's ``SegTrainConfig`` of a configuration file."""
+    return seg_config(conf, seed)
+
+
+def control_readings(ctx) -> dict:
+    """The probe's numbers for the program, the float8 control, the half
+    batch (the reference on half of each batch, the mean over the rest), a
+    state left unchanged (the program's readings with no change) and the
+    witness (the reference with its convolutions in bfloat16)."""
+    s = Setup(ctx, warm=False)
+    s.free()
+    ref = s.reference()
+    out = {"program": compare.train_numbers(s.readings, ref),
+           "control": compare.train_numbers(s.reference("float8"), ref),
+           "half_batch": compare.train_numbers(
+               s.reference(fault="half_batch"), ref),
+           "witness_bf16": compare.train_numbers(s.reference("bfloat16"),
+                                                 ref)}
+    still = dict(s.readings, changes={n: 0.0 * t for n, t in
+                                      s.readings["changes"].items()})
+    out["unchanged"] = compare.train_numbers(still, ref)
+    return out
 
 
 def run(ctx) -> Outcome:

@@ -1,9 +1,14 @@
 """A run of a cell at a size the CPU holds: the cell's own files, with the
-image sizes, the set sizes and the steps of a call cut."""
+image sizes, the set sizes and the steps of a call cut.  A made-up
+benchmark: the real one copied, with a configuration of another family
+added from ``madeup/``."""
 
 from __future__ import annotations
 
 import copy
+import json
+import os
+import shutil
 import time
 
 import torch
@@ -37,3 +42,30 @@ def tiny_ctx(cell_name: str, seed: int = 5, seconds: float = 0.0,
                limits=S.limits(cell_name) if limits is None else limits,
                seed=seed, seconds=seconds, trace=False,
                device=torch.device("cpu"), t0=time.perf_counter())
+
+
+MADEUP = os.path.join(os.path.dirname(os.path.abspath(__file__)), "madeup")
+
+
+def make_madeup(tmp: str) -> str:
+    """A checkout at ``tmp``: ``BENCHMARK.json`` and ``benchmarks/`` copied,
+    the files under ``madeup/`` laid over ``benchmarks/``, and the entries
+    of ``madeup/entries.json`` appended to the spec.  Returns its root."""
+    bench = os.path.join(tmp, "benchmarks")
+    shutil.copytree(os.path.join(S.ROOT, "benchmarks"), bench,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for sub in sorted(os.listdir(MADEUP)):
+        if os.path.isdir(os.path.join(MADEUP, sub)):
+            shutil.copytree(os.path.join(MADEUP, sub),
+                            os.path.join(bench, sub), dirs_exist_ok=True)
+    spec = S.load()
+    with open(os.path.join(MADEUP, "entries.json")) as f:
+        add = json.load(f)
+    for group in ("configs", "workloads", "end_to_end", "per_layer"):
+        spec[group] += add.get(group, [])
+    for m in spec["end_to_end"] + spec["per_layer"]:
+        m.get("workloads", []).extend(
+            add["append_to_workloads"].get(m["name"], []))
+    with open(os.path.join(tmp, "BENCHMARK.json"), "w") as f:
+        json.dump(spec, f, indent=2)
+    return tmp
